@@ -1,7 +1,8 @@
 PY ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH),)
 
-.PHONY: test test-fast verify lint docs-check bench-quick bench-planner \
+.PHONY: test test-fast test-torch chip-smoke verify lint docs-check \
+        bench-quick bench-planner \
         bench-substrate bench-mesh bench-cache bench-beam bench-beam-smoke \
         bench-quant bench-quant-smoke bench-stream bench-stream-smoke \
         bench-build bench-build-smoke bench-wal bench-all bench-full \
@@ -26,6 +27,15 @@ lint:
 # fail on broken intra-repo links in README.md / docs/*.md
 docs-check:
 	$(PY) tools/docs_check.py
+
+# the PyTorch port's CPU tests (held against the JAX reference)
+test-torch:
+	$(PY) -m pytest -q tests/test_torch_*.py
+
+# the port on one CUDA card: kernel build + parity, exact regime, 1M build
+# and planned search (needs a card; exits non-zero without one)
+chip-smoke:
+	python3 chip_smoke.py
 
 # skip the slow multidevice subprocess tests
 test-fast:

@@ -1,0 +1,199 @@
+"""Algorithm 2 — RNSG construction.
+
+Pipeline: (1) exact KNN graph (spatial proximity, on the device); (2)
+±ef_attribute rank window (attribute proximity, Alg. 2 line 7 —
+index-based on the attribute-sorted order); (3) per-side gap-sorted
+candidate arrays (host numpy, copied from the reference); (4) the vectorized
+Algorithm-1 pruning engine (on the device).  Ids are attribute ranks
+throughout.
+
+``RNSGGraph`` holds its arrays as torch tensors on one device and saves
+them in the reference's npz layout, so an index written by either package
+loads in the other."""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.entry import build_rmq, centroid_dists
+from repro_torch.core.pruning import prune_all
+from repro_torch.device import resolve_device
+from repro_torch.index.io import fsync_dir
+from repro_torch.index.knn import exact_knn
+
+#: npz field name -> dtype, in the reference's save order
+ARRAY_FIELDS = {"vecs": np.float32, "attrs": np.float32, "nbrs": np.int32,
+                "order": np.int32, "centroid": np.float32,
+                "dist_c": np.float32, "rmq": np.int32}
+
+
+@dataclass
+class RNSGGraph:
+    vecs: torch.Tensor        # (n,d) f32, attribute-sorted
+    attrs: torch.Tensor       # (n,)  f32, ascending
+    nbrs: torch.Tensor        # (n,m) int32, -1 padded (attribute-rank ids)
+    order: torch.Tensor       # (n,)  original ids of each rank
+    centroid: torch.Tensor    # (d,)
+    dist_c: torch.Tensor      # (n,)  δ(v, centroid) (entry structure)
+    rmq: torch.Tensor         # (LOG,n) int32 range-argmin table
+    build_seconds: float = 0.0
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.vecs.device
+
+    @property
+    def n(self) -> int:
+        return self.vecs.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.nbrs.shape[1]
+
+    @property
+    def n_edges(self) -> int:
+        return int((self.nbrs >= 0).sum())
+
+    @property
+    def index_bytes(self) -> int:
+        """Graph-structure bytes (adjacency + entry structures), excluding the
+        raw vector payload which every method must store."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.nbrs, self.rmq, self.dist_c))
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The npz fields as host numpy arrays, in the reference's dtypes."""
+        return {name: getattr(self, name).cpu().numpy().astype(dt, copy=False)
+                for name, dt in ARRAY_FIELDS.items()}
+
+    def save(self, path: str) -> None:
+        """Atomic single-file save in the reference's npz layout: written to
+        a sibling temp file, fsynced, renamed over ``path``, and the parent
+        directory fsynced.  ``meta`` and ``build_seconds`` ride along as the
+        ``__meta__`` JSON entry."""
+        if not path.endswith(".npz"):
+            path += ".npz"          # match np.savez's implicit suffix
+        info = json.dumps(dict(build_seconds=float(self.build_seconds),
+                               meta=self.meta))
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez_compressed(
+                    f, __meta__=np.frombuffer(info.encode(), np.uint8),
+                    **self.arrays())
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            fsync_dir(os.path.dirname(os.path.abspath(path)))
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "RNSGGraph":
+        """Load an npz written by either package onto ``device`` (default
+        the card)."""
+        dev = resolve_device(device)
+        if not os.path.exists(path) and os.path.exists(path + ".npz"):
+            path += ".npz"          # save() appends the suffix
+        with np.load(path) as z:    # legacy files: a 0-d build_seconds
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+            if "__meta__" in z.files:
+                arrays.update(json.loads(bytes(z["__meta__"]).decode()))
+        return graph_from_arrays(arrays, dev)
+
+
+def graph_from_arrays(arrays: dict, device) -> RNSGGraph:
+    """The port's graph from the reference ``RNSGGraph``'s fields as numpy
+    (``vecs``, ``attrs``, ``nbrs``, ``order``, ``centroid``, ``dist_c``,
+    ``rmq``, plus optional ``meta`` and ``build_seconds``) — the index's
+    counterpart of carrying a model's weights across."""
+    dev = resolve_device(device)
+    tensors = {name: torch.as_tensor(np.asarray(arrays[name], dt), device=dev)
+               for name, dt in ARRAY_FIELDS.items()}
+    return RNSGGraph(**tensors,
+                     build_seconds=float(arrays.get("build_seconds", 0.0)),
+                     meta=dict(arrays.get("meta") or {}))
+
+
+def _gap_sorted_side(n: int, knn_ids: np.ndarray, ef_attribute: int,
+                     side: str) -> np.ndarray:
+    """Per-node candidate ids of one side, ascending rank-gap, -1 padded.
+    Side candidates = attribute window ∪ same-side KNN neighbors."""
+    ids = np.arange(n)[:, None]
+    win_off = np.arange(1, ef_attribute + 1)[None, :]
+    win = ids - win_off if side == "l" else ids + win_off          # (n, ef)
+    win_ok = (win >= 0) & (win < n)
+    kn = knn_ids.copy()
+    # kn < n guards against out-of-range candidates (e.g. pad-row ids from a
+    # k >= n exact_knn, or a caller-supplied approximate KNN graph)
+    kn_ok = ((kn >= 0) & (kn < n)
+             & ((kn < ids) if side == "l" else (kn > ids)))
+    cand = np.concatenate([np.where(win_ok, win, -1),
+                           np.where(kn_ok, kn, -1)], axis=1)        # (n, ch)
+    gap = np.where(cand >= 0, np.abs(cand - ids), np.iinfo(np.int64).max // 2)
+    order = np.argsort(gap, axis=1, kind="stable")
+    cand = np.take_along_axis(cand, order, axis=1)
+    gap = np.take_along_axis(gap, order, axis=1)
+    dup = np.zeros_like(cand, bool)
+    dup[:, 1:] = (cand[:, 1:] == cand[:, :-1]) & (cand[:, 1:] >= 0)
+    cand = np.where(dup, -1, cand)
+    gap = np.where(dup, np.iinfo(np.int64).max // 2, gap)
+    order = np.argsort(gap, axis=1, kind="stable")
+    return np.take_along_axis(cand, order, axis=1).astype(np.int32)
+
+
+def build_rnsg(vectors: np.ndarray, attrs: np.ndarray, *, m: int = 32,
+               ef_spatial: int = 32, ef_attribute: int = 48,
+               knn_method: str = "exact",
+               knn_ids: Optional[np.ndarray] = None,
+               reverse_edges: bool = False, device=None) -> RNSGGraph:
+    """Algorithm 2 on ``device`` (default the card), with the reference's
+    parameters; ``knn_ids`` ((n, k) rank ids, -1 pad) skips the KNN step.
+    ``knn_method="nndescent"`` and ``reverse_edges=True`` raise
+    ``NotImplementedError`` until the baselines slice ports them."""
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    if reverse_edges:
+        raise NotImplementedError("reverse_edges arrives with the port of "
+                                  "index/baselines.py")
+    if knn_method != "exact":
+        raise NotImplementedError(f"knn_method={knn_method!r}: only 'exact' "
+                                  f"is ported")
+    vectors = np.asarray(vectors, np.float32)
+    attrs = np.asarray(attrs, np.float32)
+    n = len(attrs)
+    order = np.argsort(attrs, kind="stable")
+    vs, as_ = vectors[order], attrs[order]
+    v_dev = torch.as_tensor(vs, device=dev)
+
+    if knn_ids is None:
+        # a corpus has at most n-1 true neighbors per node
+        k_eff = min(ef_spatial, n - 1)
+        if k_eff < 1:
+            knn_ids = np.full((n, 0), -1, np.int32)
+        else:
+            _, ids = exact_knn(v_dev, k_eff)
+            knn_ids = ids.cpu().numpy().astype(np.int32)
+    cand_l = _gap_sorted_side(n, knn_ids, ef_attribute, "l")
+    cand_r = _gap_sorted_side(n, knn_ids, ef_attribute, "r")
+    nbrs = prune_all(v_dev, cand_l, cand_r, m)
+
+    c, dist_c = centroid_dists(vs)
+    rmq = build_rmq(dist_c)
+    g = graph_from_arrays(dict(vecs=vs, attrs=as_, nbrs=nbrs,
+                               order=order, centroid=c, dist_c=dist_c,
+                               rmq=rmq,
+                               meta=dict(m=m, ef_spatial=ef_spatial,
+                                         ef_attribute=ef_attribute,
+                                         knn=knn_method)), dev)
+    g.build_seconds = time.perf_counter() - t0
+    return g

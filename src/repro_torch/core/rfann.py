@@ -1,0 +1,111 @@
+"""High-level RFANN API: build / save / load / batched search on one RNSG
+index on one device.  Query execution is delegated to the search substrate
+(``repro_torch.search``); this class owns the index lifecycle."""
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+
+from repro_torch.core.construction import RNSGGraph, build_rnsg
+from repro_torch.obs.trace import maybe_span
+from repro_torch.search import SearchRequest, SearchSubstrate, rank_interval
+
+
+class RNSGIndex:
+    """The paper's system: one hereditary graph index answering every range."""
+
+    def __init__(self, graph: RNSGGraph):
+        self.g = graph
+        self._substrate = None        # lazy search substrate
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def build(cls, vectors: np.ndarray, attrs: np.ndarray, *, device=None,
+              **kw) -> "RNSGIndex":
+        """Build on ``device`` (default the card; raises without one)."""
+        return cls(build_rnsg(vectors, attrs, device=device, **kw))
+
+    def save(self, path: str) -> None:
+        """Atomic single-npz save in the reference's layout (graph only)."""
+        self.g.save(path)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "RNSGIndex":
+        """Load an npz index written by either package onto ``device``
+        (default the card)."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path} is a directory: the sharded index format arrives "
+                f"with the port of index/io.py")
+        return cls(RNSGGraph.load(path, device=device))
+
+    # ------------------------------------------------------------------
+    @property
+    def substrate(self) -> SearchSubstrate:
+        """Lazily-built search substrate (resolve/dispatch/stitch)."""
+        if self._substrate is None:
+            self._substrate = SearchSubstrate.from_graph(self.g)
+        return self._substrate
+
+    @property
+    def planner(self):
+        return self.substrate.planner
+
+    def rank_range(self, attr_ranges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """[a_l, a_r] (inclusive) -> rank interval [L, R] (inclusive), on
+        the host."""
+        return rank_interval(self.substrate.attrs,
+                             np.asarray(attr_ranges, np.float32))
+
+    def search(self, queries: np.ndarray, attr_ranges: np.ndarray, *,
+               k: int = 10, ef: int = 64, use_kernel: bool = False,
+               plan: str = "graph", beam_width: int = 1,
+               precision: str = "f32", trace=None, live=None):
+        """queries:(Q,d); attr_ranges:(Q,2) attribute values (inclusive).
+        plan: "graph" (pure beam search) | "auto" (cost-based scan/beam
+        routing) | "scan" / "beam" (forced strategy).
+        beam_width: batched-expansion width for beam dispatches (1 = the
+        single-node hop; B>1 fuses B node expansions per hop).
+        use_kernel: score the beam's neighbors with the gather kernels.
+        precision: only "f32" is ported so far.
+        trace: optional ``repro_torch.obs.QueryTrace``.
+        Returns a ``SearchResult`` (tuple-compatible: ids, dists, stats)."""
+        with maybe_span(trace, "resolve") as sp:
+            lo, hi = self.rank_range(attr_ranges)
+            sp.attrs.update(
+                q=len(np.atleast_2d(queries)), n=self.g.n,
+                interval_widths=np.clip(
+                    np.asarray(hi, np.int64) - np.asarray(lo, np.int64) + 1,
+                    0, None) if trace is not None else None)
+        return self.search_ranks(queries, lo, hi, k=k, ef=ef,
+                                 use_kernel=use_kernel, plan=plan,
+                                 beam_width=beam_width, precision=precision,
+                                 trace=trace, live=live)
+
+    def search_ranks(self, queries, lo, hi, *, k=10, ef=64, use_kernel=False,
+                     plan="graph", beam_width=1, precision="f32", trace=None,
+                     live=None):
+        return self.substrate.run(SearchRequest(
+            queries=np.asarray(queries, np.float32), lo=lo, hi=hi,
+            k=k, ef=ef, strategy=plan, use_kernel=use_kernel,
+            beam_width=beam_width, precision=precision, trace=trace,
+            live=live))
+
+    # ------------------------------------------------------------------
+    @property
+    def index_bytes(self) -> int:
+        return self.g.index_bytes
+
+    @property
+    def n_edges(self) -> int:
+        return self.g.n_edges
+
+    def stats(self) -> Dict:
+        deg = (self.g.nbrs >= 0).sum(1)
+        return dict(n=self.g.n, m=self.g.m, edges=self.g.n_edges,
+                    mean_degree=float(deg.float().mean()),
+                    max_degree=int(deg.max()),
+                    index_mb=self.index_bytes / 2**20,
+                    build_seconds=self.g.build_seconds)

@@ -1,0 +1,83 @@
+"""Public kernel wrappers: dispatch by device, and count launches.
+
+Dispatch follows the device of the tensor a wrapper is given, never what
+happens to be installed:
+
+* a CPU tensor runs the kernel's plain PyTorch version
+  (``repro_torch.kernels.ref``);
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``repro_torch/csrc``), built on first use; a failed build or launch
+  raises.  There is no fallback.
+
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
+kernel (a CPU call counts nothing), so a run can show that its path went
+through the kernels: zero the counts with ``reset_launches`` just before
+the run and read them just after."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES: Dict[str, int] = {"range_scan": 0, "gather_dist": 0,
+                            "gather_topk": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _tile(m: int, cap: int = 128) -> int:
+    """The reference's lane-row size for an id vector of length m."""
+    return int(min(cap, 1 << max(int(m) - 1, 0).bit_length() if m > 1 else 1))
+
+
+def gather_dist(x: torch.Tensor, ids: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """Fused gather + score: x (N,d), ids (Q,M) (clipped to [0, N-1]),
+    q (Q,d) -> (Q,M) Σ(x−q)².  Callers mask."""
+    if x.device.type == "cpu":
+        return ref.gather_dist_ref(x, ids, q)
+    from repro_torch.kernels.gather_dist import gather_dist_cuda
+    out = gather_dist_cuda(x, ids, q)
+    LAUNCHES["gather_dist"] += 1
+    return out
+
+
+def gather_topk(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
+                k: int):
+    """Fused gather + score + top-k: the batched beam's frontier feed.
+    ids (Q,M), negative = masked -> (ids:(Q,k) i32 ascending distance (-1
+    pad), dists:(Q,k) f32 (+inf pad)), ties toward the lower input position.
+    Raises ``ValueError`` for a k beyond the reference kernel's running
+    top-k row (``gather_topk_pallas``), on every device."""
+    tile = _tile(max(ids.shape[1], k))
+    if k > tile:
+        raise ValueError(f"gather_topk: k={k} exceeds the {tile}-lane "
+                         f"running top-k row (use gather_dist + sort)")
+    if x.device.type == "cpu":
+        return ref.gather_topk_ref(x, ids, q, k=k)
+    from repro_torch.kernels.gather_dist import gather_topk_cuda
+    out = gather_topk_cuda(x, ids, q, k=k)
+    LAUNCHES["gather_topk"] += 1
+    return out
+
+
+def range_scan(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+               q: torch.Tensor, *, bucket: int, k: int, n_valid: int = 0,
+               live: torch.Tensor | None = None):
+    """Per-query masked scan + top-k over contiguous rank slices of x.
+    ``n_valid`` masks the zero rows padding x to a row-tile multiple
+    (0 = all of x is real); ``live`` ((1, n_pad) i32) masks tombstoned
+    rows."""
+    if x.device.type == "cpu":
+        return ref.range_scan_ref(x, starts, lens, q, bucket=bucket, k=k,
+                                  n_valid=n_valid, live=live)
+    from repro_torch.kernels.range_scan import range_scan_cuda
+    out = range_scan_cuda(x, starts, lens, q, bucket=bucket, k=k,
+                          n_valid=n_valid, live=live)
+    LAUNCHES["range_scan"] += 1
+    return out

@@ -1,0 +1,374 @@
+"""Dispatch + stitch stages: one strategy-routed execution layer.
+
+``SearchSubstrate`` owns the query path for one attribute-sorted corpus on
+one device:
+
+* ``resolve``  — attribute ranges -> rank intervals
+                 (``repro_torch.search.resolve``);
+* dispatch     — ``graph`` runs the paper's beam search over the full batch;
+                 ``auto``/``scan``/``beam`` go through the adaptive planner,
+                 which partitions the batch into fixed-shape dispatches
+                 (the ``range_scan`` kernel | bucketed beam search);
+* stitch       — partition results land back in request order, rank ids are
+                 remapped to original corpus ids, and per-query stats
+                 (hops / ndist / strategy) are assembled.
+
+``dispatch(req)`` enqueues the device work and returns a ``PendingSearch``
+whose ``result()`` copies results to the host and stitches; ``run`` is the
+synchronous spelling.  Deferred dispatches skip wall-time calibration.
+After every planned synchronous dispatch the substrate feeds the cost
+model: observed ``ndist`` from beam stats and warm-call wall times per work
+unit (the first call of each signature is excluded, so the kernels' build
+never enters calibration).
+
+Not ported yet: the result cache, the metrics registry, the quantized
+corpus slots (``precision`` other than ``"f32"`` raises) and the mesh
+substrate.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.beam import beam_search_batch
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import range_scan
+from repro_torch.obs.trace import maybe_span
+from repro_torch.planner.bucketing import ROW_TILE, window_rows
+from repro_torch.planner.planner import QueryPlanner
+from repro_torch.search import resolve
+from repro_torch.search.request import SearchRequest, SearchResult
+
+INF = np.float32(np.inf)
+
+
+def merge_topk(ids: torch.Tensor, dists: torch.Tensor, k: int):
+    """(S,Q,k) per-shard results -> (Q,k) global top-k, ties toward the
+    lower flattened position (shard-major within a query), as the
+    reference's ``lax.top_k`` merge."""
+    s, q, kk = ids.shape
+    flat_i = ids.movedim(0, 1).reshape(q, s * kk)
+    flat_d = dists.movedim(0, 1).reshape(q, s * kk)
+    o = torch.argsort(flat_d, dim=1, stable=True)[:, :k]
+    d = flat_d.gather(1, o)
+    return torch.where(torch.isfinite(d), flat_i.gather(1, o), -1), d
+
+
+class PendingSearch:
+    """Handle for an in-flight substrate dispatch: ``result()`` blocks on
+    the outputs, stitches, feeds the cost model, and returns the
+    ``SearchResult``.  Idempotent."""
+    __slots__ = ("_finalize", "_result")
+
+    def __init__(self, finalize: Callable[[], SearchResult]):
+        self._finalize: Optional[Callable[[], SearchResult]] = finalize
+        self._result: Optional[SearchResult] = None
+
+    def result(self) -> SearchResult:
+        if self._finalize is not None:
+            self._result = self._finalize()
+            self._finalize = None
+        return self._result
+
+
+class SearchSubstrate:
+    def __init__(self, vecs, nbrs, rmq, dist_c, order, attrs, *,
+                 device=None):
+        dev = resolve_device(device)
+        self.device = dev
+        self._vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)
+        self._nbrs = torch.as_tensor(nbrs, device=dev)
+        self._rmq = torch.as_tensor(rmq, device=dev)
+        self._dist_c = torch.as_tensor(dist_c, device=dev)
+        self.order = _host(order)
+        self.attrs = _host(attrs)
+        n, d = self._vecs.shape
+        self.n, self.d = n, d
+        self.tb = ROW_TILE          # must match the range_scan kernel tile
+        self.d_pad = -(-d // 128) * 128
+        deg = float((self._nbrs >= 0).sum(1).float().mean()) if n else 1.0
+        self.planner = QueryPlanner(max(n, 1), deg)
+        self._x_pad = None          # padded scan copy, built on first scan
+        self._live_memo = None      # (mask, (n,) bool dev, (1,n_pad) i32 dev)
+        self._warm: Set[Tuple] = set()
+
+    @classmethod
+    def from_graph(cls, g, **kw) -> "SearchSubstrate":
+        """Build over one ``RNSGGraph``, on the graph's device."""
+        kw.setdefault("device", g.device)
+        return cls(g.vecs, g.nbrs, g.rmq, g.dist_c, g.order, g.attrs, **kw)
+
+    # ---------------------------------------------------------------- run
+    def run(self, req: SearchRequest) -> SearchResult:
+        """Dispatch one request synchronously and stitch the result."""
+        return self.dispatch(req, defer=False).result()
+
+    def dispatch(self, req: SearchRequest, *,
+                 defer: bool = True) -> PendingSearch:
+        """Enqueue one request's device work and return a ``PendingSearch``.
+        ``defer=False`` blocks each planned partition before dispatching the
+        next and calibrates on its wall time.  A ``req.trace`` collects plan
+        / dispatch / stitch spans."""
+        if req.precision != "f32":
+            raise NotImplementedError(
+                f"precision={req.precision!r}: the quantized corpus arrives "
+                f"with the port's quantized slice")
+        qv = np.asarray(req.queries, np.float32)
+        lo = np.asarray(req.lo, np.int64)
+        hi = np.asarray(req.hi, np.int64)
+        fin = self._dispatch_all(qv, lo, hi, int(req.k), int(req.ef),
+                                 req.strategy, req.use_kernel, defer,
+                                 int(req.beam_width), trace=req.trace,
+                                 live=req.live)
+        return PendingSearch(self._stitched(fin, req.trace))
+
+    def _stitched(self, fin: Callable[[], SearchResult],
+                  tr) -> Callable[[], SearchResult]:
+        """Wrap a finalize closure with the stitch span and attach the
+        trace to the result.  Identity when tracing is off."""
+        if tr is None:
+            return fin
+
+        def finalize() -> SearchResult:
+            with tr.span("stitch"):
+                res = fin()
+            res.trace = tr
+            return res
+        return finalize
+
+    # ----------------------------------------------------------- dispatch
+    def _dispatch_all(self, qv, lo, hi, k, ef, strategy, use_kernel,
+                      defer: bool, beam_width: int = 1, trace=None,
+                      live=None) -> Callable[[], SearchResult]:
+        """Enqueue the work for one batch; the returned closure blocks,
+        stitches, and remaps rank ids to original ids."""
+        with maybe_span(trace, "dispatch") as sp:
+            sp.attrs.update(strategy_mode=strategy, use_kernel=use_kernel,
+                            beam_width=beam_width, precision="f32",
+                            dispatched=len(qv), deferred=defer)
+            if strategy == "graph":
+                if trace is not None:
+                    trace.add_span("plan", strategy_mode="graph",
+                                   chosen="graph", beam_width=beam_width)
+                fin = self._dispatch_graph(qv, lo, hi, k, ef, use_kernel,
+                                           beam_width, live=live)
+            else:
+                fin = self._dispatch_planned(qv, lo, hi, k, ef, strategy,
+                                             use_kernel, defer, beam_width,
+                                             trace=trace, span=sp, live=live)
+
+        def finalize() -> SearchResult:
+            ids, dists, stats = fin()
+            return SearchResult(resolve.remap_ids(self.order, ids), dists,
+                                stats)
+        return finalize
+
+    # ------------------------------------------------------ graph strategy
+    def _dispatch_graph(self, qv, lo, hi, k, ef, use_kernel, beam_width=1,
+                        live=None):
+        """The paper's path: one beam-search dispatch over the full batch."""
+        dev = self.device
+        qj = torch.as_tensor(qv, device=dev)
+        lo_j = torch.as_tensor(lo, device=dev)
+        hi_j = torch.as_tensor(hi, device=dev)
+        entry = resolve.select_entry(self._rmq, self._dist_c, lo_j, hi_j,
+                                     self.n)
+        live_b, _ = self._live_ops(live)
+        ids, dists, st = beam_search_batch(
+            self._vecs, self._nbrs, qj, lo_j, hi_j, entry,
+            k=k, ef=max(ef, k), use_kernel=use_kernel,
+            beam_width=beam_width, live=live_b)
+
+        def finalize():
+            st_h = {kk: vv.cpu().numpy() for kk, vv in st.items()}
+            st_h["strategy"] = np.ones(len(qv), np.int8)     # all graph/beam
+            st_h["scan_frac"] = 0.0
+            return ids.cpu().numpy(), dists.cpu().numpy(), st_h
+        return finalize
+
+    # ---------------------------------------------------- planned strategies
+    def _dispatch_planned(self, qv, lo, hi, k, ef, mode, use_kernel,
+                          defer: bool, beam_width: int = 1, trace=None,
+                          span=None, live=None):
+        """Routing policy: plan the batch, dispatch each fixed-shape
+        partition, stitch back in request order."""
+        q = len(qv)
+        if trace is None:
+            plan = self.planner.plan_batch(lo, hi, k=k, ef=ef, mode=mode,
+                                           beam_width=beam_width)
+        else:
+            with trace.span("plan") as psp:
+                plan = self.planner.plan_batch(lo, hi, k=k, ef=ef,
+                                               mode=mode,
+                                               beam_width=beam_width)
+                lens = np.clip(hi - lo + 1, 0, None)
+                sc, bc = self.planner.predict_costs(lens, k=k, ef=ef,
+                                                    beam_width=beam_width)
+                psp.attrs.update(
+                    strategy_mode=mode, strategy=plan.strategy.copy(),
+                    scan_frac=plan.scan_frac, beam_width=beam_width,
+                    precision="f32",
+                    partitions=[p.signature for p in plan.partitions],
+                    predicted_scan_units=sc, predicted_beam_units=bc)
+        if span is not None:
+            span.attrs["pad_rows"] = sum(p.pad_q - len(p.indices)
+                                         for p in plan.partitions)
+        fins = []
+        for part in plan.partitions:
+            if part.kind == "scan":
+                fin = self._dispatch_scan(qv, lo, hi, part.indices,
+                                          part.param, part.pad_q, k,
+                                          calibrate_wall=not defer,
+                                          live=live)
+            else:
+                fin = self._dispatch_beam(qv, lo, hi, part.indices,
+                                          part.param, part.pad_q, k,
+                                          calibrate=(mode == "auto"),
+                                          calibrate_wall=not defer,
+                                          use_kernel=use_kernel,
+                                          beam_width=beam_width, live=live)
+            if not defer:
+                val = fin()
+                fin = (lambda v: lambda: v)(val)
+            fins.append(fin)
+
+        def finalize():
+            out_ids = np.full((q, k), -1, np.int32)
+            out_d = np.full((q, k), INF, np.float32)
+            hops = np.zeros(q, np.int32)
+            ndist = np.zeros(q, np.int32)
+            for part, fin in zip(plan.partitions, fins):
+                idx = part.indices  # never empty (guarded at plan time)
+                if part.kind == "scan":
+                    ids_p, d_p, units = fin()
+                    ndist[idx] = units
+                else:
+                    ids_p, d_p, st = fin()
+                    hops[idx] = st["hops"]
+                    ndist[idx] = st["ndist"]
+                out_ids[idx] = ids_p
+                out_d[idx] = d_p
+            stats = {"hops": hops, "ndist": ndist,
+                     "strategy": plan.strategy, "scan_frac": plan.scan_frac}
+            return out_ids, out_d, stats
+        return finalize
+
+    # ------------------------------------------------------------------
+    def _scan_corpus(self) -> torch.Tensor:
+        """Row/lane-padded corpus copy for the scan kernel (lazy: a corpus
+        that never routes to scan skips the duplicate)."""
+        if self._x_pad is None:
+            n_pad = -(-self.n // self.tb) * self.tb
+            self._x_pad = torch.nn.functional.pad(
+                self._vecs, (0, self.d_pad - self.d, 0, n_pad - self.n))
+        return self._x_pad
+
+    # ------------------------------------------------------- liveness mask
+    def _live_ops(self, live):
+        """Device forms of a per-rank liveness mask: ((n,) bool for the beam
+        paths, (1, n_pad) i32 row for the scan kernel).  Memoized by object
+        identity (a publisher hands out one immutable mask per version)."""
+        if live is None:
+            return None, None
+        memo = self._live_memo
+        if memo is not None and memo[0] is live:
+            return memo[1], memo[2]
+        lv = np.asarray(live, bool)
+        if lv.shape != (self.n,):
+            raise ValueError(
+                f"live mask shape {lv.shape} does not match corpus ({self.n},)")
+        n_pad = -(-self.n // self.tb) * self.tb
+        row = np.zeros((1, n_pad), np.int32)
+        row[0, :self.n] = lv
+        out = (torch.as_tensor(lv, device=self.device),
+               torch.as_tensor(row, device=self.device))
+        self._live_memo = (live,) + out
+        return out
+
+    def _dispatch_scan(self, qv, lo, hi, idx, bucket: int, pad_q: int,
+                       k: int, *, calibrate_wall: bool, live=None):
+        nq = len(idx)
+        starts = np.zeros(pad_q, np.int32)
+        lens = np.zeros(pad_q, np.int32)
+        starts[:nq] = lo[idx]
+        lens[:nq] = np.clip(hi[idx] - lo[idx] + 1, 0, bucket)
+        qp = np.zeros((pad_q, self.d_pad), np.float32)
+        qp[:nq, :self.d] = qv[idx]
+        _, live_row = self._live_ops(live)
+        sig = ("scan", bucket, pad_q, k, live is not None)
+        warm = sig in self._warm
+        self._warm.add(sig)
+        dev = self.device
+        t0 = time.perf_counter()
+        ids, d = range_scan(self._scan_corpus(),
+                            torch.as_tensor(starts, device=dev),
+                            torch.as_tensor(lens, device=dev),
+                            torch.as_tensor(qp, device=dev),
+                            bucket=bucket, k=k, live=live_row)
+        units = window_rows(bucket, self.tb)
+
+        def finalize():
+            ids_h = ids.cpu().numpy()[:nq]
+            d_h = d.cpu().numpy()[:nq]
+            dt = time.perf_counter() - t0
+            if calibrate_wall and warm:
+                # pad_q windows of work were done, not nq
+                self.planner.cost.observe_wall("scan", units, dt, pad_q)
+            return ids_h, d_h, units
+        return finalize
+
+    def _dispatch_beam(self, qv, lo, hi, idx, ef: int, pad_q: int, k: int, *,
+                       calibrate: bool, calibrate_wall: bool = True,
+                       use_kernel: bool = False, beam_width: int = 1,
+                       live=None):
+        nq = len(idx)
+        if nq == 0:                 # empty partition: nothing to dispatch
+            empty = np.zeros(0, np.int32)
+            return lambda: (np.zeros((0, k), np.int32),
+                            np.zeros((0, k), np.float32),
+                            {"hops": empty, "ndist": empty})
+        dev = self.device
+        pad = np.concatenate([idx, np.repeat(idx[-1:], pad_q - nq)])
+        lo_j = torch.as_tensor(np.clip(lo[pad], 0, self.n - 1), device=dev)
+        hi_j = torch.as_tensor(np.clip(hi[pad], 0, self.n - 1), device=dev)
+        entry = resolve.select_entry(self._rmq, self._dist_c, lo_j, hi_j,
+                                     self.n)
+        live_b, _ = self._live_ops(live)
+        sig = ("beam", ef, pad_q, k, beam_width, live is not None)
+        warm = sig in self._warm
+        self._warm.add(sig)
+        t0 = time.perf_counter()
+        ids, d, st = beam_search_batch(
+            self._vecs, self._nbrs, torch.as_tensor(qv[pad], device=dev),
+            torch.as_tensor(lo[pad], device=dev),
+            torch.as_tensor(hi[pad], device=dev),
+            entry, k=k, ef=max(ef, k), use_kernel=use_kernel,
+            beam_width=beam_width, live=live_b)
+
+        def finalize():
+            ids_h = ids.cpu().numpy()[:nq]
+            d_h = d.cpu().numpy()[:nq]
+            st_h = {kk: vv.cpu().numpy()[:nq] for kk, vv in st.items()}
+            dt = time.perf_counter() - t0
+            if calibrate:
+                self.planner.cost.update_beam(float(st_h["ndist"].mean()), ef,
+                                              beam_width=beam_width)
+                if calibrate_wall and warm:
+                    # pad lanes duplicate the last real query: normalize by
+                    # pad_q lanes of ~ndist work each
+                    self.planner.cost.observe_wall(
+                        "beam", max(float(st_h["ndist"].mean()), 1.0), dt,
+                        pad_q)
+            return ids_h, d_h, st_h
+        return finalize
+
+
+def _host(a) -> np.ndarray:
+    """A host numpy view of a tensor or array."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
