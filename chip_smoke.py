@@ -20,9 +20,16 @@ Phases, each printing its lines:
              (bw 1, kernels), (bw 4, plain), (bw 4, kernels); recall@10 per
              level, QPS, scan share; scan-routed queries must be exact and
              each kernel path must equal its plain path on >= 99% of
-             queries; every kernel's launch count over build + search > 0;
-6. the ``{"kernels": [...]}`` line;
-7. the last line ``{"ok": true, "device": {...}}``.
+             queries.  Launches are counted per path: zeroed just before
+             each ``search`` call and read just after it; each kernel path
+             must launch its kernels and each plain path no gather kernel.
+             Then ``plan="graph"`` recall@10 per level at ef 64/256/1024
+             (bw 4, kernels) on the same index;
+6. witness — an n = 100,000 build and graph search on the card, written to
+             ``chiprun_out/witness_n100000.npz`` for ``scale_witness.py``,
+             which holds it against the JAX reference on the CPU;
+7. the ``{"kernels": [...]}`` line;
+8. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -181,16 +188,25 @@ def phase_parity(x_pad, vecs, n, seed):
     live = torch.as_tensor(rng.random((1, x_pad.shape[0])) < 0.7,
                            device=dev).int()
     for kw in (dict(k=10, n_valid=n - 2000), dict(k=10, live=live),
-               dict(k=128), dict(k=300, live=live)):
-        _compare(f"range_scan edge {sorted(kw)}",
+               dict(k=128), dict(k=300, live=live), dict(k=4096),
+               dict(k=5000, live=live)):
+        _compare(f"range_scan edge {kw.get('k')} {sorted(kw)}",
                  ops.range_scan(x_pad, st, ln, qv, bucket=4096, **kw),
                  ref.range_scan_ref(x_pad, st, ln, qv, bucket=4096, **kw),
                  atol)
-    print("[parity] range_scan edges ok (n_valid tail, live, k=128, k=300)")
+    # k past the shared-memory merge over a window of many chunks
+    ln = torch.as_tensor(rng.integers(0, 65537, nq), device=dev)
+    _compare("range_scan edge k=4096 bucket=65536",
+             ops.range_scan(x_pad, st, ln, qv, bucket=65536, k=4096),
+             ref.range_scan_ref(x_pad, st, ln, qv, bucket=65536, k=4096),
+             atol)
+    print("[parity] range_scan edges ok (n_valid tail, live, k=128, k=300, "
+          "k=4096, k=5000 > window, k=4096 at bucket 65536)")
 
     q = qv[:, :vecs.shape[1]].contiguous()
     d = vecs.shape[1]
-    ids = torch.as_tensor(rng.integers(0, n, (nq, 32)), device=dev)
+    # int32 ids, as the beam passes them
+    ids = torch.as_tensor(rng.integers(0, n, (nq, 32)), device=dev).int()
     run_k = lambda: ops.gather_dist(vecs, ids, q)
     run_p = lambda: ref.gather_dist_ref(vecs, ids, q)
     gd_err = float((run_k() - run_p()).abs().max())
@@ -200,7 +216,7 @@ def phase_parity(x_pad, vecs, n, seed):
     gd = dict(q=nq, m=32, ms=_time_ms(run_k, 50), plain_ms=_time_ms(run_p, 20),
               max_abs_err=gd_err)
     gd["bound_ms"], gd["bound_by"] = _bound(
-        rows * d * 4 + nq * 32 * 8 + q.numel() * 4, nq * 32 * d * 3)
+        rows * d * 4 + nq * 32 * 4 + q.numel() * 4, nq * 32 * d * 3)
     print(f"[parity] gather_dist q={nq} m=32 d={d} ok err={gd_err:.3g} "
           f"ms={gd['ms']:.4f} plain_ms={gd['plain_ms']:.4f} "
           f"bound_ms={gd['bound_ms']:.5f} ({gd['bound_by']})")
@@ -210,7 +226,7 @@ def phase_parity(x_pad, vecs, n, seed):
                           rtol=1e-4, atol=atol):
         raise AssertionError("gather_dist: out-of-range ids differ")
 
-    ids = torch.as_tensor(rng.integers(0, n, (nq, 128)), device=dev)
+    ids = torch.as_tensor(rng.integers(0, n, (nq, 128)), device=dev).int()
     ids = torch.where(torch.as_tensor(rng.random((nq, 128)) < 0.3,
                                       device=dev), -1, ids)
     ids[0] = -1                                         # all-masked row
@@ -308,13 +324,14 @@ def phase_full(n, nq, batch, seed, ops):
     print(f"[full] data n={n} d={d} nq={nq} made in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()          # the main path: build, then search
+    ops.reset_launches()
     idx = RNSGIndex.build(base, attrs, m=32, ef_spatial=32, ef_attribute=48)
     st = idx.stats()
     print(f"[full] build {st['build_seconds']:.2f} s edges={st['edges']} "
           f"mean_degree={st['mean_degree']:.3f} max_degree={st['max_degree']} "
           f"index_mb={st['index_mb']:.1f} peak_gb="
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"launches={dict(ops.LAUNCHES)}")
     t0 = time.perf_counter()
     gt, gd = ground_truth(base, attrs, qv, ranges, 10)
     print(f"[full] ground truth on the card in {time.perf_counter() - t0:.2f} s")
@@ -324,6 +341,7 @@ def phase_full(n, nq, batch, seed, ops):
     out = {c: [] for c, _, _ in configs}
     strat = {c: [] for c, _, _ in configs}
     secs = {c: 0.0 for c, _, _ in configs}
+    launches = {c: dict.fromkeys(ops.LAUNCHES, 0) for c, _, _ in configs}
     planner = idx.planner
     for lo in range(0, nq, batch):
         q_b, r_b = qv[lo:lo + batch], ranges[lo:lo + batch]
@@ -333,19 +351,32 @@ def phase_full(n, nq, batch, seed, ops):
             # every path plans this batch from the same calibration state,
             # so a kernel path and its plain path route alike
             planner.cost.load_state_dict(json.loads(start))
+            ops.reset_launches()          # this path's run, and only it
             t1 = time.perf_counter()
             res = idx.search(q_b, r_b, k=10, ef=64, plan="auto",
                              beam_width=bw, use_kernel=uk)
             secs[name] += time.perf_counter() - t1
+            for kern, c in ops.LAUNCHES.items():
+                launches[name][kern] += c
             out[name].append(res)
             strat[name].append(res.stats["strategy"])
             if follow is None:
                 follow = json.dumps(planner.cost.state_dict())
         planner.cost.load_state_dict(json.loads(follow))
-    launches = dict(ops.LAUNCHES)
-    print(f"[full] launches over the main path (build + search): {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    print(f"[full] launches per path over {nq} queries: "
+          f"{json.dumps(launches)}")
+    # each kernel path runs its kernels; the plain paths launch no gather
+    # kernel (every path's scan partitions go through range_scan)
+    need = {"bw1_kernel": ("range_scan", "gather_dist"),
+            "bw4_kernel": ("range_scan", "gather_topk")}
+    for name, kerns in need.items():
+        if not all(launches[name][k] > 0 for k in kerns):
+            raise AssertionError(f"{name} did not launch {kerns}: "
+                                 f"{launches[name]}")
+    for name in ("bw1_plain", "bw4_plain"):
+        if launches[name]["gather_dist"] or launches[name]["gather_topk"]:
+            raise AssertionError(f"{name} launched a gather kernel: "
+                                 f"{launches[name]}")
 
     summary = {}
     ids = {c: np.concatenate([r.ids for r in out[c]]) for c in out}
@@ -363,7 +394,8 @@ def phase_full(n, nq, batch, seed, ops):
         summary[name] = dict(qps=nq / secs[name], seconds=secs[name],
                              recall=recall_at_k(ids[name], gt),
                              recall_by_level=rec,
-                             scan_share=float(scan.mean()))
+                             scan_share=float(scan.mean()),
+                             launches=launches[name])
         print(f"[full] {name}: qps={nq / secs[name]:.1f} "
               f"recall@10={summary[name]['recall']:.4f} "
               f"scan_share={scan.mean():.3f} scan_exact=ok "
@@ -379,8 +411,69 @@ def phase_full(n, nq, batch, seed, ops):
             raise AssertionError(f"{kern} differs from {plain} on "
                                  f"{len(diff)} queries")
         summary[kern]["equal_to_plain"] = float(same.mean())
+
+    # the graph alone (no scan routing) as ef grows: recall that climbs
+    # toward 1 says the low recall at ef=64 is the beam's reach, not a
+    # graph that cannot lead to the answers
+    sweep = {}
+    for ef in (64, 256, 1024):
+        t1 = time.perf_counter()
+        got = np.concatenate([
+            idx.search(qv[lo:lo + batch], ranges[lo:lo + batch], k=10, ef=ef,
+                       plan="graph", beam_width=4, use_kernel=True).ids
+            for lo in range(0, nq, batch)])
+        dt = time.perf_counter() - t1
+        rec = {int(lv): recall_at_k(got[level == lv], gt[level == lv])
+               for lv in np.unique(level)}
+        sweep[ef] = dict(qps=nq / dt, recall=recall_at_k(got, gt),
+                         recall_by_level=rec)
+        print(f"[full] graph bw4_kernel ef={ef}: qps={nq / dt:.1f} "
+              f"recall@10={sweep[ef]['recall']:.4f} recall_by_level=" +
+              ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
     return dict(build=st, configs=summary, launches=launches,
-                batch=batch, nq=nq, n=n)
+                graph_ef_sweep=sweep, batch=batch, nq=nq, n=n)
+
+
+def phase_witness(seed, out: Path, n=100_000, nq=200):
+    """The port's card build and graph search at n = 100,000, written for
+    ``scale_witness.py`` (the JAX reference on the CPU): the card's exact
+    KNN ids, the graph built from them, and the ``plan="graph"`` ids, hops
+    and ndist at ef=64, bw 1 and 4, with the kernels.  The vectors, ranges
+    and queries are made again from the seed on the other side."""
+    import torch
+    from repro_torch.core.rfann import RNSGIndex
+    from repro_torch.data.ann import make_attrs, make_vectors, mixed_workload
+    from repro_torch.index.knn import exact_knn
+    t0 = time.perf_counter()
+    allv = make_vectors(n + nq, 128, seed=seed)
+    base, qv = allv[:n], allv[n:]
+    attrs = make_attrs(n, seed=seed)
+    ranges, _ = mixed_workload(attrs, nq, seed=seed)
+    vs = torch.as_tensor(base[np.argsort(attrs, kind="stable")],
+                         device="cuda")
+    knn = exact_knn(vs, 32)[1].cpu().numpy().astype(np.int32)
+    del vs
+    m, ef_attribute = 32, 48                  # the build_rnsg defaults
+    idx = RNSGIndex.build(base, attrs, m=m, ef_attribute=ef_attribute,
+                          knn_ids=knn)
+    arrays = {k: v for k, v in idx.g.arrays().items()
+              if k not in ("vecs", "attrs")}
+    res = {}
+    for bw in (1, 4):
+        r = idx.search(qv, ranges, k=10, ef=64, plan="graph", beam_width=bw,
+                       use_kernel=True)
+        res.update({f"ids_bw{bw}": r.ids, f"hops_bw{bw}": r.stats["hops"],
+                    f"ndist_bw{bw}": r.stats["ndist"]})
+    out.mkdir(exist_ok=True)
+    path = out / f"witness_n{n}.npz"
+    np.savez_compressed(path, seed=seed, n=n, nq=nq, m=m,
+                        ef_attribute=ef_attribute, knn_ids=knn,
+                        **arrays, **res)
+    st = idx.stats()
+    print(f"[witness] n={n} built on the card (edges={st['edges']} "
+          f"mean_degree={st['mean_degree']:.3f}) and searched; wrote {path} "
+          f"({path.stat().st_size / 2**20:.1f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -415,13 +508,16 @@ def main() -> int:
 
     phase_exact(args.seed)
     full = phase_full(n, args.nq, 64, args.seed, ops)
+    out = ROOT / "chiprun_out"
+    phase_witness(args.seed + 3, out)
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
     kern = [
         dict(name="range_scan", route="cuda",
              source="src/repro_torch/csrc/range_scan.cu",
              replaces="src/repro/kernels/range_scan.py:119",
-             launches=full["launches"]["range_scan"],
+             launches=full["launches"]["bw1_kernel"]["range_scan"],
+             launches_path="bw1_kernel",
              max_abs_err=max(r["max_abs_err"] for r in rs),
              ms=main_rs["ms"], plain_ms=main_rs["plain_ms"],
              bound_ms=main_rs["bound_ms"], bound_by=main_rs["bound_by"],
@@ -430,7 +526,8 @@ def main() -> int:
         dict(name="gather_dist", route="cuda",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:79",
-             launches=full["launches"]["gather_dist"],
+             launches=full["launches"]["bw1_kernel"]["gather_dist"],
+             launches_path="bw1_kernel",
              max_abs_err=gd["max_abs_err"], ms=gd["ms"],
              plain_ms=gd["plain_ms"], bound_ms=gd["bound_ms"],
              bound_by=gd["bound_by"], library_ms=None, parity_ok=True,
@@ -438,7 +535,8 @@ def main() -> int:
         dict(name="gather_topk", route="cuda",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:179",
-             launches=full["launches"]["gather_topk"],
+             launches=full["launches"]["bw4_kernel"]["gather_topk"],
+             launches_path="bw4_kernel",
              max_abs_err=gk["max_abs_err"], ms=gk["ms"],
              plain_ms=gk["plain_ms"], bound_ms=gk["bound_ms"],
              bound_by=gk["bound_by"], library_ms=None, parity_ok=True,
@@ -447,8 +545,6 @@ def main() -> int:
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
                    gather_dist=gd, gather_topk=gk, full=full,
                    wall_seconds=time.perf_counter() - t_start)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

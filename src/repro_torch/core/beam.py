@@ -226,14 +226,15 @@ def _beam_single(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
         exp_n = expanded.clone()
         exp_n[rows, bi] = True
         node = cand_ids[rows, bi].clamp_min(0)
-        nb = nbrs[node].long()                                # (Q,m)
+        nb32 = nbrs[node]                       # (Q,m) i32, as the kernel takes
+        nb = nb32.long()
         valid = (nb >= 0) & (nb >= lo[:, None]) & (nb <= hi[:, None])
         nbc = nb.clamp_min(0)
         valid &= ~visited.gather(1, nbc)
         valid &= act[:, None]                   # a finished lane is frozen
         visited.scatter_(1, torch.where(valid, nb, n), True)
         if use_kernel:
-            d_nb = ops.gather_dist(vecs, nb, qv)
+            d_nb = ops.gather_dist(vecs, nb32, qv)
         else:
             d_nb = _row_dists(vecs, nbc, qv)
         d_nb = torch.where(valid, d_nb, INF)
@@ -263,15 +264,17 @@ def _beam_batched(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
     fm = min(F, ef)
     kernel_topk = use_kernel and fm <= 128
 
-    def fresh_sorted(ids_f, valid):
-        """(Q,F) masked neighbor ids -> distance-sorted (Q,fm) fresh list
-        (ids -1 / dist inf beyond the valid entries)."""
-        ids_m = torch.where(valid, ids_f, -1)
+    def fresh_sorted(ids_f, ids32, valid):
+        """(Q,F) masked neighbor ids (int64, and the int32 copy the kernels
+        take) -> distance-sorted (Q,fm) fresh list (ids -1 / dist inf beyond
+        the valid entries)."""
         if kernel_topk:
-            fi, fd = ops.gather_topk(vecs, ids_m, qv, k=fm)
+            fi, fd = ops.gather_topk(vecs, torch.where(valid, ids32, -1), qv,
+                                     k=fm)
             return fd, fi.long()
+        ids_m = torch.where(valid, ids_f, -1)
         if use_kernel:
-            d = ops.gather_dist(vecs, ids_f, qv)
+            d = ops.gather_dist(vecs, ids32, qv)
         else:
             d = _row_dists(vecs, ids_f.clamp_min(0), qv)
         d = torch.where(valid, d, INF)
@@ -303,7 +306,8 @@ def _beam_batched(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
                            -1)
         exp_n = expanded | torch.any((ar_ef[None, None, :] == lanes[:, :, None])
                                      & take[:, :, None], dim=1)
-        ids_f = nbrs[node.clamp_min(0)].reshape(nq, F).long()
+        ids32 = nbrs[node.clamp_min(0)].reshape(nq, F)
+        ids_f = ids32.long()
         valid = ((ids_f >= 0) & (ids_f >= lo[:, None]) & (ids_f <= hi[:, None])
                  & (node >= 0).repeat_interleave(m, dim=1))
         # intra-hop dedup: keep the first occurrence of a shared neighbor
@@ -315,7 +319,7 @@ def _beam_batched(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
         valid &= ~_table_lookup(table, ids_f, H)
         valid &= act[:, None]                   # a finished lane is frozen
         _table_insert(table, torch.where(valid, ids_f, -1), H)
-        fd, fi = fresh_sorted(ids_f, valid)
+        fd, fi = fresh_sorted(ids_f, ids32, valid)
         md, mi, me = _merge_sorted(cand_d, cand_ids, exp_n, fd, fi, fi < 0, ef)
         a = act[:, None]
         cand_d = torch.where(a, md, cand_d)

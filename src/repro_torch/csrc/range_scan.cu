@@ -29,12 +29,22 @@
 // buffer (running best P = next_pow2(k) keys plus a tile of new ones,
 // bitonic-sorted per tile) and writes ids and dists.  The rank rides in the
 // key, so ties break toward the lower rank whatever the block order.
+//
+// Every k the reference takes stays in the kernel.  While 2*next_pow2(k)
+// keys fit one block's shared memory (k <= SMEM_K) the merge above runs.
+// Past that, pass 1 keeps whole chunks (kc = R = SMEM_K) over a pow2 number
+// of chunks S, so each query's S*R keys are sorted runs of R; a bitonic
+// merge in global memory (one launch per cross-tile step, the in-tile
+// steps of each stage in shared memory) sorts the row, and the first k
+// keys leave as ids and dists.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "topk_key.cuh"
 
 #define THREADS 256
+// largest next_pow2(k) whose merge buffer (2*P keys) stays in shared memory
+#define SMEM_K 2048
 
 __global__ void range_scan_partial(const float* __restrict__ x,
                                    const int* __restrict__ starts,
@@ -136,12 +146,62 @@ __global__ void range_scan_merge(const key_t64* __restrict__ partial, int C,
       buf[P + i] = (t0 + i < C) ? cand[t0 + i] : KEY_NONE;
     bitonic_sort(buf, SZ);  // the best P now lead the buffer
   }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const key_t64 key = buf[i];
-    const bool fin = key_finite(key);
-    out_ids[(size_t)qi * k + i] = fin ? (int)key_index(key) : -1;
-    out_d[(size_t)qi * k + i] = fin ? key_dist(key) : __uint_as_float(INF_BITS);
+  for (int i = threadIdx.x; i < k; i += blockDim.x)
+    emit(buf[i], out_ids + (size_t)qi * k + i, out_d + (size_t)qi * k + i);
+}
+
+// One compare-exchange step of an ascending bitonic merge over each query's
+// row of C keys (grid (ceil(C/2 / THREADS), Q), one thread per pair).
+// flip: pairs i and its mirror in each block of 2*half keys (the first step
+// of a stage, which merges two ascending runs of half keys); else pairs i
+// and i + half (a half-cleaner).
+__global__ void sort_step(key_t64* __restrict__ keys, int C, int half,
+                          int flip) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= C / 2) return;
+  key_t64* row = keys + (size_t)blockIdx.y * C;
+  const int blk = t / half, off = t % half;
+  const int i = blk * 2 * half + off;
+  const int j = flip ? blk * 2 * half + 2 * half - 1 - off : i + half;
+  const key_t64 a = row[i], b = row[j];
+  if (a > b) {
+    row[i] = b;
+    row[j] = a;
   }
+}
+
+// The half-cleaners of strides stride0 .. 1 on each tile of R keys, in
+// shared memory (grid (C / R, Q)).
+__global__ void sort_tile(key_t64* __restrict__ keys, int C, int R,
+                          int stride0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  key_t64* s = reinterpret_cast<key_t64*>(smem);
+  key_t64* tile = keys + (size_t)blockIdx.y * C + (size_t)blockIdx.x * R;
+  for (int i = threadIdx.x; i < R; i += blockDim.x) s[i] = tile[i];
+  __syncthreads();
+  for (int stride = stride0; stride > 0; stride >>= 1) {
+    for (int t = threadIdx.x; t < R / 2; t += blockDim.x) {
+      const int i = (t / stride) * 2 * stride + t % stride;
+      const key_t64 a = s[i], b = s[i + stride];
+      if (a > b) {
+        s[i] = b;
+        s[i + stride] = a;
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < R; i += blockDim.x) tile[i] = s[i];
+}
+
+// The first k keys of each sorted row of C keys, -1/+inf past C.
+__global__ void range_scan_emit(const key_t64* __restrict__ keys, int C,
+                                int k, int* __restrict__ out_ids,
+                                float* __restrict__ out_d) {
+  const int qi = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k) return;
+  emit(i < C ? keys[(size_t)qi * C + i] : KEY_NONE,
+       out_ids + (size_t)qi * k + i, out_d + (size_t)qi * k + i);
 }
 
 static int set_smem(const void* fn, size_t bytes) {
@@ -150,17 +210,18 @@ static int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// partial: (Q, S, kc) scratch with S = ceil(w / R), kc = min(k, R).
-// R and P = next_pow2(k) are powers of two with R >= P (the wrapper picks
-// R = max(1024, P)).  Returns the first CUDA error, 0 on success.
+// partial: (Q, S, kc) scratch, kc = min(k, R).  For next_pow2(k) <= SMEM_K
+// the wrapper picks R = max(1024, next_pow2(k)) and S = ceil(w / R); past
+// it R = SMEM_K and S = next_pow2(ceil(w / R)), so kc = R and each row of
+// S*R keys can be bitonic-merged in place.  Returns the first CUDA error,
+// 0 on success.
 extern "C" int range_scan_launch(const float* x, const int* starts,
                                  const int* lens, const float* q,
                                  const int* live, key_t64* partial,
                                  int* out_ids, float* out_d, int n_pad,
                                  int d_pad, int Q, int w, int k, int n_valid,
-                                 int R, void* stream) {
+                                 int R, int S, void* stream) {
   const int tb = 128;
-  const int S = (w + R - 1) / R;
   const int kc = k < R ? k : R;
   cudaStream_t st = (cudaStream_t)stream;
   size_t smem1 = (size_t)R * sizeof(key_t64) + (size_t)d_pad * sizeof(float);
@@ -171,11 +232,31 @@ extern "C" int range_scan_launch(const float* x, const int* starts,
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int P = next_pow2_host(k);
-  const int SZ = 2 * P > 1024 ? 2 * P : 1024;
-  size_t smem2 = (size_t)SZ * sizeof(key_t64);
-  rc = set_smem((const void*)range_scan_merge, smem2);
+  if (P <= SMEM_K) {
+    const int SZ = 2 * P > 1024 ? 2 * P : 1024;
+    size_t smem2 = (size_t)SZ * sizeof(key_t64);
+    rc = set_smem((const void*)range_scan_merge, smem2);
+    if (rc) return rc;
+    range_scan_merge<<<Q, THREADS, smem2, st>>>(partial, S * kc, k, P, SZ,
+                                                 out_ids, out_d);
+    return (int)cudaGetLastError();
+  }
+  // k past the shared-memory merge: the S runs of R sorted keys per query
+  // are merged in global memory, stage by stage
+  const int C = S * R;
+  const dim3 pairs((C / 2 + THREADS - 1) / THREADS, Q);
+  const size_t smem_t = (size_t)R * sizeof(key_t64);
+  rc = set_smem((const void*)sort_tile, smem_t);
   if (rc) return rc;
-  range_scan_merge<<<Q, THREADS, smem2, st>>>(partial, S * kc, k, P, SZ,
-                                               out_ids, out_d);
+  for (int size = 2 * R; size <= C; size <<= 1) {
+    sort_step<<<pairs, THREADS, 0, st>>>(partial, C, size / 2, 1);
+    for (int half = size / 4; half >= R; half >>= 1)
+      sort_step<<<pairs, THREADS, 0, st>>>(partial, C, half, 0);
+    sort_tile<<<dim3(C / R, Q), THREADS, smem_t, st>>>(partial, C, R, R / 2);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  range_scan_emit<<<dim3((k + THREADS - 1) / THREADS, Q), THREADS, 0, st>>>(
+      partial, C, k, out_ids, out_d);
   return (int)cudaGetLastError();
 }

@@ -56,6 +56,13 @@ __device__ void bitonic_sort(key_t64* s, int n) {
   }
 }
 
+// Writes one top-k slot: the key's index and distance, or -1/+inf for a pad.
+__device__ __forceinline__ void emit(key_t64 key, int* id, float* dist) {
+  const bool fin = key_finite(key);
+  *id = fin ? (int)key_index(key) : -1;
+  *dist = fin ? key_dist(key) : __uint_as_float(INF_BITS);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

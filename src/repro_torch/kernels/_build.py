@@ -36,8 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "range_scan": {
         # x, starts, lens, q, live, partial, out_ids, out_d,
-        # n_pad, d_pad, Q, w, k, n_valid, R, stream
-        "range_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
+        # n_pad, d_pad, Q, w, k, n_valid, R, S, stream
+        "range_scan_launch": [_P] * 8 + [_I] * 8 + [_P],
     },
     "gather_dist": {
         # x, ids, q, out, N, d, Q, M, stream

@@ -17,8 +17,9 @@ from repro_torch.kernels import _build
 #: rows one block of the scan's first pass owns (it sorts R keys in shared
 #: memory); raised to next_pow2(k) when k is larger
 ROWS_PER_BLOCK = 1024
-#: largest k the kernel takes: its merge buffer holds 2·next_pow2(k) keys
-MAX_K = 2048
+#: largest next_pow2(k) merged in shared memory (2·next_pow2(k) keys);
+#: a larger k is merged in global memory (``SMEM_K`` in the kernel source)
+SMEM_K = 2048
 
 
 def window_rows(bucket: int, tb: int = 128) -> int:
@@ -44,8 +45,8 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
     if n_pad % 128 or d_pad % 128 or q.shape[1] != d_pad:
         raise ValueError(f"range_scan: x {tuple(x.shape)} must be padded to "
                          f"multiples of 128 and q {tuple(q.shape)} to d_pad")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"range_scan: k={k} outside [1, {MAX_K}]")
+    if k < 1:
+        raise ValueError(f"range_scan: k={k} must be at least 1")
     dev = x.device
     if q.device != dev:
         raise ValueError("range_scan: x and q must share one device")
@@ -54,8 +55,13 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
     if nq == 0:
         return ids, dists
     w = window_rows(bucket)
-    r = max(ROWS_PER_BLOCK, 1 << (k - 1).bit_length())
-    s = -(-w // r)
+    p = 1 << (k - 1).bit_length()
+    if p <= SMEM_K:
+        r = max(ROWS_PER_BLOCK, p)
+        s = -(-w // r)
+    else:       # whole sorted chunks, a pow2 number of them, merged in place
+        r = SMEM_K
+        s = 1 << (-(-w // r) - 1).bit_length()
     partial = torch.empty((nq, s, min(k, r)), dtype=torch.int64, device=dev)
     x = x.contiguous()
     q = q.contiguous()
@@ -71,6 +77,7 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
         x.data_ptr(), starts.data_ptr(), lens.data_ptr(), q.data_ptr(),
         None if live is None else live.data_ptr(), partial.data_ptr(),
         ids.data_ptr(), dists.data_ptr(), n_pad, d_pad, nq, w, k,
-        int(n_valid) or n_pad, r, torch.cuda.current_stream(dev).cuda_stream)
+        int(n_valid) or n_pad, r, s,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "range_scan")
     return ids, dists

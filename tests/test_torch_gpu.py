@@ -32,7 +32,8 @@ def _same(got, want, atol=1e-2):
 
 
 @pytest.mark.parametrize("bucket,k", [(64, 10), (512, 10), (4096, 128),
-                                      (2048, 300)])
+                                      (2048, 300), (4096, 4096),
+                                      (16384, 5000)])
 def test_range_scan_kernel_matches_plain(cuda, bucket, k):
     rng = np.random.default_rng(bucket)
     n, d_pad, q = 5000, 128, 16
