@@ -10,21 +10,28 @@ Phases, each printing its lines:
 2. build   — nvcc builds of every kernel source (``-Xptxas -v`` summary);
 3. parity  — each hand-written kernel against its plain PyTorch version on
              the card, at the main path's shapes and at edge cases, with
-             CUDA-event times, the byte/flop bound and the plain time;
+             CUDA-event times, the byte/flop bound and the plain time: the
+             f32 kernels, then the int8/bf16 corpora (quantized on the card
+             and bit-equal to the CPU's quantization) through range_scan,
+             gather_dist and gather_topk, and the f32 rerank gather_rerank;
 4. exact   — n = 4096, d = 128: every strategy × beam width {1, 4} ×
-             use_kernel returns the brute-force ids at ef >= n;
+             use_kernel × precision {f32, int8, bf16} returns the
+             brute-force ids at ef >= n;
 5. full    — a SIFT1M-shaped corpus (1M × 128, numpy from ``--seed``) built
-             with the ``build_rnsg`` defaults, then 1,000 queries of the
-             paper's 2^0..2^-9 selectivity mix in batches of 64 through
+             with the ``build_rnsg`` defaults, then ``install_quantized`` for
+             int8 and bf16 (timed), then 1,000 queries of the paper's
+             2^0..2^-9 selectivity mix in batches of 64 through
              ``RNSGIndex.search(plan="auto", k=10, ef=64)`` at (bw 1, plain),
-             (bw 1, kernels), (bw 4, plain), (bw 4, kernels); recall@10 per
-             level, QPS, scan share; scan-routed queries must be exact and
-             each kernel path must equal its plain path on >= 99% of
+             (bw 1, kernels), (bw 4, plain), (bw 4, kernels), for each
+             precision; recall@10 per level, QPS, scan share; scan-routed
+             queries must be exact (all of them at f32, >= 99% quantized)
+             and each kernel path must equal its plain path on >= 99% of
              queries.  Launches are counted per path: zeroed just before
              each ``search`` call and read just after it; each kernel path
-             must launch its kernels and each plain path no gather kernel.
-             Then ``plan="graph"`` recall@10 per level at ef 64/256/1024
-             (bw 4, kernels) on the same index;
+             must launch its kernels (in its precision's variant), each
+             plain path no gather kernel, each quantized path
+             ``gather_rerank``.  Then ``plan="graph"`` recall@10 per level at
+             ef 64/256/1024 (bw 4, kernels, f32) on the same index;
 6. witness — an n = 100,000 build and graph search on the card, written to
              ``chiprun_out/witness_n100000.npz`` for ``scale_witness.py``,
              which holds it against the JAX reference on the CPU;
@@ -258,6 +265,180 @@ def phase_parity(x_pad, vecs, n, seed):
     return rs, gd, gk
 
 
+def _quantized_slots(vecs, x_pad):
+    """The int8 and bf16 copies of the corpus, quantized on the card and
+    held bit for bit against the CPU's quantization of the same array:
+    {precision: (data (n,d), data_pad (n_pad,d_pad), scale_pad or None)}."""
+    import torch
+    from repro_torch.kernels.quantize import quantize_corpus
+    cpu = vecs.cpu()
+    out = {}
+    for p in ("int8", "bf16"):
+        qc = quantize_corpus(vecs, p)
+        ref = quantize_corpus(cpu, p)
+        raw = torch.uint8 if p == "int8" else torch.int16
+        if not torch.equal(qc.data.cpu().view(raw), ref.data.view(raw)):
+            raise AssertionError(f"quantize_corpus {p}: card data differs "
+                                 f"from the CPU's")
+        if p == "int8" and not torch.equal(qc.scale.cpu().view(torch.int32),
+                                           ref.scale.view(torch.int32)):
+            raise AssertionError("quantize_corpus int8: card scale differs "
+                                 "from the CPU's")
+        data_pad = torch.nn.functional.pad(
+            qc.data, (0, 0, 0, x_pad.shape[0] - qc.data.shape[0]))
+        out[p] = (qc.data, data_pad, qc.scale)
+    print(f"[parity] quantize_corpus on the card equals the CPU bit for bit "
+          f"(int8 data and scale, bf16 bits; n={vecs.shape[0]})")
+    return out
+
+
+def phase_parity_quant(x_pad, vecs, n, seed):
+    """The int8/bf16 corpora through range_scan, gather_dist and gather_topk,
+    and the f32 rerank gather_rerank, each against its plain version;
+    returns {kernel: {dtype: record}} and the rerank records."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quantize import sort_candidates
+    dev = x_pad.device
+    rng = np.random.default_rng(seed + 202)
+    d_pad, d = x_pad.shape[1], vecs.shape[1]
+    xn2 = float((x_pad * x_pad).sum(1).max())
+    atol = 1e-4 * max(1.0, xn2)
+    nq = 64
+    qv = torch.as_tensor(rng.standard_normal((nq, d_pad)).astype(np.float32)
+                         * 4.0, device=dev)
+    qv[:, d:] = 0
+    q = qv[:, :d].contiguous()
+    slots = _quantized_slots(vecs, x_pad)
+    recs = {"range_scan": {}, "gather_dist": {}, "gather_topk": {}}
+    for p, (data, data_pad, scale) in slots.items():
+        item = data.element_size()
+        sbytes = 0 if scale is None else d_pad * 4
+        sflop = 0 if scale is None else 1          # the dequant multiply
+        rs = []
+        for b in (512, 8192, 65536):
+            starts = rng.integers(0, max(n - b // 2, 1), nq)
+            lens = rng.integers(b // 2, b + 1, nq)
+            lens[0] = 0
+            starts[1], lens[1] = n - 1, 1
+            starts[2] = 128 * 7 + 37
+            st = torch.as_tensor(starts, device=dev)
+            ln = torch.as_tensor(lens, device=dev)
+            rows = int(_covered(starts, lens, n).sum())
+            scored = np.clip(np.minimum(starts + lens, n) - starts, 0, None)
+            for k in (10, 128):
+                kw = dict(bucket=b, k=k, n_valid=n, scale=scale)
+                run_k = lambda: ops.range_scan(data_pad, st, ln, qv, **kw)
+                run_p = lambda: ref.range_scan_ref(data_pad, st, ln, qv, **kw)
+                err = _compare(f"range_scan {p} b={b} k={k}", run_k(),
+                               run_p(), atol)
+                bound, by = _bound(
+                    rows * d_pad * item + sbytes + qv.numel() * 4 + nq * 8
+                    + nq * k * 8,
+                    float(scored.sum()) * (4 + sflop) * d_pad)
+                ms = _time_ms(run_k, 20)
+                pms = _time_ms(run_p, 3 if b >= 16384 else 10)
+                rs.append(dict(bucket=b, q=nq, k=k, ms=ms, plain_ms=pms,
+                               bound_ms=bound, bound_by=by, max_abs_err=err,
+                               rows=rows))
+                print(f"[parity] range_scan {p} q={nq} d_pad={d_pad} "
+                      f"bucket={b} k={k} ok err={err:.3g} ms={ms:.4f} "
+                      f"plain_ms={pms:.4f} bound_ms={bound:.4f} ({by})")
+        live = torch.as_tensor(rng.random((1, x_pad.shape[0])) < 0.7,
+                               device=dev).int()
+        starts = rng.integers(0, n, nq)
+        starts[:8] = n - rng.integers(1, 4000, 8)
+        st = torch.as_tensor(starts, device=dev)
+        ln = torch.as_tensor(rng.integers(0, 4097, nq), device=dev)
+        for kw in (dict(k=128, live=live), dict(k=10, n_valid=n - 2000),
+                   dict(k=300, live=live)):
+            _compare(f"range_scan {p} edge {sorted(kw)} k={kw['k']}",
+                     ops.range_scan(data_pad, st, ln, qv, bucket=4096,
+                                    scale=scale, **kw),
+                     ref.range_scan_ref(data_pad, st, ln, qv, bucket=4096,
+                                        scale=scale, **kw), atol)
+        recs["range_scan"][p] = rs
+
+        ids = torch.as_tensor(rng.integers(0, n, (nq, 32)), device=dev).int()
+        run_k = lambda: ops.gather_dist(data, ids, q, scale)
+        run_p = lambda: ref.gather_dist_ref(data, ids, q, scale)
+        err = float((run_k() - run_p()).abs().max())
+        if not torch.allclose(run_k(), run_p(), rtol=1e-4, atol=atol):
+            raise AssertionError(f"gather_dist {p}: max abs err {err}")
+        oob = torch.as_tensor(rng.integers(-5, n + 5, (nq, 32)), device=dev)
+        if not torch.allclose(ops.gather_dist(data, oob, q, scale),
+                              ref.gather_dist_ref(data, oob, q, scale),
+                              rtol=1e-4, atol=atol):
+            raise AssertionError(f"gather_dist {p}: out-of-range ids differ")
+        rows = len(np.unique(ids.cpu().numpy()))
+        gd = dict(q=nq, m=32, ms=_time_ms(run_k, 50),
+                  plain_ms=_time_ms(run_p, 20), max_abs_err=err)
+        gd["bound_ms"], gd["bound_by"] = _bound(
+            rows * d * item + sbytes + nq * 32 * 4 + q.numel() * 4
+            + nq * 32 * 4, nq * 32 * d * (3 + sflop))
+        recs["gather_dist"][p] = gd
+        print(f"[parity] gather_dist {p} q={nq} m=32 d={d} ok err={err:.3g} "
+              f"ms={gd['ms']:.4f} plain_ms={gd['plain_ms']:.4f} "
+              f"bound_ms={gd['bound_ms']:.5f} ({gd['bound_by']})")
+
+        ids = torch.as_tensor(rng.integers(0, n, (nq, 128)), device=dev).int()
+        ids = torch.where(torch.as_tensor(rng.random((nq, 128)) < 0.3,
+                                          device=dev), -1, ids)
+        ids[0] = -1
+        run_k = lambda: ops.gather_topk(data, ids, q, k=64, scale=scale)
+        run_p = lambda: ref.gather_topk_ref(data, ids, q, k=64, scale=scale)
+        err = _compare(f"gather_topk {p}", run_k(), run_p(), atol)
+        valid = ids.cpu().numpy()
+        rows = len(np.unique(valid[valid >= 0]))
+        gk = dict(q=nq, m=128, k=64, ms=_time_ms(run_k, 50),
+                  plain_ms=_time_ms(run_p, 20), max_abs_err=err)
+        gk["bound_ms"], gk["bound_by"] = _bound(
+            rows * d * item + sbytes + nq * 128 * 4 + q.numel() * 4
+            + nq * 64 * 8, int((valid >= 0).sum()) * d * (3 + sflop))
+        recs["gather_topk"][p] = gk
+        for m, k in ((5, 8), (200, 128), (32, 1)):
+            e = torch.as_tensor(rng.integers(-2, n, (nq, m)), device=dev)
+            _compare(f"gather_topk {p} m={m} k={k}",
+                     ops.gather_topk(data, e, q, k=k, scale=scale),
+                     ref.gather_topk_ref(data, e, q, k=k, scale=scale), atol)
+        print(f"[parity] gather_topk {p} q={nq} m=128 k=64 d={d} ok "
+              f"err={err:.3g} ms={gk['ms']:.4f} "
+              f"plain_ms={gk['plain_ms']:.4f} "
+              f"bound_ms={gk['bound_ms']:.5f} ({gk['bound_by']}); edges ok "
+              f"(out-of-range ids, all-masked row, M<k, k=128, k=1)")
+    del slots
+
+    rr = []
+    for m, k, timed in ((128, 10, True), (64, 10, True), (4096, 10, True),
+                        (4096, 200, True), (5, 8, False),
+                        (30000, 128, False), (9000, 3000, False)):
+        ids = torch.as_tensor(rng.integers(0, n, (nq, m)), device=dev)
+        ids = torch.where(torch.as_tensor(rng.random((nq, m)) < 0.1,
+                                          device=dev), -1, ids)
+        ids[0] = -1                                     # all-masked row
+        ids = sort_candidates(ids)
+        run_k = lambda: ops.gather_rerank(vecs, ids, q, k=k)
+        run_p = lambda: ref.gather_rerank_ref(vecs, ids, q, k=k)
+        err = _compare(f"gather_rerank m={m} k={k}", run_k(), run_p(), atol)
+        if not timed:
+            continue
+        valid = ids.cpu().numpy()
+        rows = len(np.unique(valid[valid >= 0]))
+        rec = dict(q=nq, m=m, k=k, ms=_time_ms(run_k, 50),
+                   plain_ms=_time_ms(run_p, 20), max_abs_err=err)
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            rows * d * 4 + nq * m * 4 + q.numel() * 4 + nq * k * 8,
+            int((valid >= 0).sum()) * d * 3)
+        rr.append(rec)
+        print(f"[parity] gather_rerank q={nq} m={m} k={k} d={d} ok "
+              f"err={err:.3g} ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']})")
+    print("[parity] gather_rerank edges ok (all-masked row, M<k, M=30000 "
+          "past one tile, k=3000 merged in global memory)")
+    return recs, rr
+
+
 def _same_sets(ids, gt, d_gt, d_got):
     """Rows whose id sets differ from the ground truth other than by a
     near-tie at the k-th distance (rel 1e-5)."""
@@ -292,21 +473,62 @@ def phase_exact(seed):
                                         np.float32)])
     idx = RNSGIndex.build(base, a)
     gt, gd = ground_truth(base, a, qv, rg, 10)
-    runs = 0
-    for plan in ("graph", "auto", "scan", "beam"):
-        for bw in (1, 4):
-            for uk in (False, True):
-                res = idx.search(qv, rg, k=10, ef=n, plan=plan,
-                                 beam_width=bw, use_kernel=uk)
-                bad = _same_sets(res.ids, gt, gd, res.dists)
-                if bad:
-                    raise AssertionError(f"exact regime {plan} bw={bw} "
-                                         f"use_kernel={uk}: rows {bad}")
-                runs += 1
-    torch.cuda.synchronize()
-    print(f"[exact] n={n} d={d} q={nq} ef={n}: {runs} runs "
-          f"(graph/auto/scan/beam x bw 1,4 x use_kernel) equal brute force "
-          f"({time.perf_counter() - t0:.1f} s)")
+    for prec in ("int8", "bf16"):
+        idx.install_quantized(prec)
+    for prec in ("f32", "int8", "bf16"):
+        t1 = time.perf_counter()
+        runs = 0
+        for plan in ("graph", "auto", "scan", "beam"):
+            for bw in (1, 4):
+                for uk in (False, True):
+                    res = idx.search(qv, rg, k=10, ef=n, plan=plan,
+                                     beam_width=bw, use_kernel=uk,
+                                     precision=prec)
+                    bad = _same_sets(res.ids, gt, gd, res.dists)
+                    if bad:
+                        raise AssertionError(
+                            f"exact regime {prec} {plan} bw={bw} "
+                            f"use_kernel={uk}: rows {bad}")
+                    runs += 1
+        torch.cuda.synchronize()
+        print(f"[exact] {prec} n={n} d={d} q={nq} ef={n}: {runs} runs "
+              f"(graph/auto/scan/beam x bw 1,4 x use_kernel) equal brute "
+              f"force ({time.perf_counter() - t1:.1f} s)")
+    print(f"[exact] done in {time.perf_counter() - t0:.1f} s")
+
+
+PATHS = [("bw1_plain", 1, False), ("bw1_kernel", 1, True),
+         ("bw4_plain", 4, False), ("bw4_kernel", 4, True)]
+PRECISIONS = ("f32", "int8", "bf16")
+
+
+def _path_name(prec, path):
+    """f32 paths keep their plain names; quantized ones are prefixed."""
+    return path if prec == "f32" else f"{prec}_{path}"
+
+
+def _check_launches(launches):
+    """Per-path launch counts: every path's scan partitions go through its
+    precision's range_scan variant; each kernel path launches its gather
+    kernel in that variant and no other, each plain path no gather kernel;
+    every quantized path launches gather_rerank, no f32 path does."""
+    gathers = ("gather_dist", "gather_topk")
+    for prec in PRECISIONS:
+        for path, bw, uk in PATHS:
+            name = _path_name(prec, path)
+            got = launches[name]
+            need = [f"range_scan.{prec}"]
+            if uk:
+                need.append(f"{gathers[bw > 1]}.{prec}")
+            if prec != "f32":
+                need.append("gather_rerank")
+            zero = [f"{g}.{p}" for g in gathers + ("range_scan",)
+                    for p in PRECISIONS
+                    if p != prec or (g in gathers and not uk)] + \
+                (["gather_rerank"] if prec == "f32" else [])
+            if not all(got[k] > 0 for k in need) or any(got[k] for k in zero):
+                raise AssertionError(f"{name}: launches {got} need {need} "
+                                     f"and none of {zero}")
 
 
 def phase_full(n, nq, batch, seed, ops):
@@ -332,29 +554,41 @@ def phase_full(n, nq, batch, seed, ops):
           f"index_mb={st['index_mb']:.1f} peak_gb="
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"launches={dict(ops.LAUNCHES)}")
+    install = {}
+    for prec in PRECISIONS[1:]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        idx.install_quantized(prec)
+        torch.cuda.synchronize()
+        install[prec] = time.perf_counter() - t1
+        slot = idx.substrate._quant[prec]
+        print(f"[full] install_quantized({prec!r}) {install[prec]:.3f} s "
+              f"(data {tuple(slot['data'].shape)} {slot['data'].dtype}, "
+              f"{slot['bytes_per_vector']} B per vector) peak_gb="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     t0 = time.perf_counter()
     gt, gd = ground_truth(base, attrs, qv, ranges, 10)
     print(f"[full] ground truth on the card in {time.perf_counter() - t0:.2f} s")
 
-    configs = [("bw1_plain", 1, False), ("bw1_kernel", 1, True),
-               ("bw4_plain", 4, False), ("bw4_kernel", 4, True)]
-    out = {c: [] for c, _, _ in configs}
-    strat = {c: [] for c, _, _ in configs}
-    secs = {c: 0.0 for c, _, _ in configs}
-    launches = {c: dict.fromkeys(ops.LAUNCHES, 0) for c, _, _ in configs}
+    configs = [(_path_name(p, path), p, bw, uk)
+               for p in PRECISIONS for path, bw, uk in PATHS]
+    out = {c[0]: [] for c in configs}
+    strat = {c[0]: [] for c in configs}
+    secs = {c[0]: 0.0 for c in configs}
+    launches = {c[0]: dict.fromkeys(ops.LAUNCHES, 0) for c in configs}
     planner = idx.planner
     for lo in range(0, nq, batch):
         q_b, r_b = qv[lo:lo + batch], ranges[lo:lo + batch]
         start = json.dumps(planner.cost.state_dict())
         follow = None
-        for name, bw, uk in configs:
+        for name, prec, bw, uk in configs:
             # every path plans this batch from the same calibration state,
             # so a kernel path and its plain path route alike
             planner.cost.load_state_dict(json.loads(start))
             ops.reset_launches()          # this path's run, and only it
             t1 = time.perf_counter()
             res = idx.search(q_b, r_b, k=10, ef=64, plan="auto",
-                             beam_width=bw, use_kernel=uk)
+                             beam_width=bw, use_kernel=uk, precision=prec)
             secs[name] += time.perf_counter() - t1
             for kern, c in ops.LAUNCHES.items():
                 launches[name][kern] += c
@@ -363,30 +597,22 @@ def phase_full(n, nq, batch, seed, ops):
             if follow is None:
                 follow = json.dumps(planner.cost.state_dict())
         planner.cost.load_state_dict(json.loads(follow))
+    nonzero = {c: {k: v for k, v in cnt.items() if v}
+               for c, cnt in launches.items()}
     print(f"[full] launches per path over {nq} queries: "
-          f"{json.dumps(launches)}")
-    # each kernel path runs its kernels; the plain paths launch no gather
-    # kernel (every path's scan partitions go through range_scan)
-    need = {"bw1_kernel": ("range_scan", "gather_dist"),
-            "bw4_kernel": ("range_scan", "gather_topk")}
-    for name, kerns in need.items():
-        if not all(launches[name][k] > 0 for k in kerns):
-            raise AssertionError(f"{name} did not launch {kerns}: "
-                                 f"{launches[name]}")
-    for name in ("bw1_plain", "bw4_plain"):
-        if launches[name]["gather_dist"] or launches[name]["gather_topk"]:
-            raise AssertionError(f"{name} launched a gather kernel: "
-                                 f"{launches[name]}")
+          f"{json.dumps(nonzero)}")
+    _check_launches(launches)
 
     summary = {}
     ids = {c: np.concatenate([r.ids for r in out[c]]) for c in out}
     dists = {c: np.concatenate([r.dists for r in out[c]]) for c in out}
-    for name, _, _ in configs:
+    for name, prec, _, _ in configs:
         s = np.concatenate(strat[name])
         scan = s == SCAN
         bad = _same_sets(ids[name][scan], gt[scan], gd[scan],
                          dists[name][scan])
-        if bad:
+        exact = 1.0 - len(bad) / max(int(scan.sum()), 1)
+        if (prec == "f32" and bad) or exact < 0.99:
             raise AssertionError(f"{name}: scan-routed queries not exact: "
                                  f"{np.flatnonzero(scan)[bad][:10].tolist()}")
         rec = {int(lv): recall_at_k(ids[name][level == lv], gt[level == lv])
@@ -395,22 +621,34 @@ def phase_full(n, nq, batch, seed, ops):
                              recall=recall_at_k(ids[name], gt),
                              recall_by_level=rec,
                              scan_share=float(scan.mean()),
+                             scan_exact=int(scan.sum()) - len(bad),
+                             scan_routed=int(scan.sum()),
                              launches=launches[name])
         print(f"[full] {name}: qps={nq / secs[name]:.1f} "
               f"recall@10={summary[name]['recall']:.4f} "
-              f"scan_share={scan.mean():.3f} scan_exact=ok "
+              f"scan_share={scan.mean():.3f} scan_exact="
+              f"{int(scan.sum()) - len(bad)}/{int(scan.sum())} "
               f"recall_by_level=" +
               ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
-    for kern, plain in (("bw1_kernel", "bw1_plain"),
-                        ("bw4_kernel", "bw4_plain")):
-        same = (ids[kern] == ids[plain]).all(1)
-        diff = np.flatnonzero(~same)
-        print(f"[full] {kern} vs {plain}: {same.mean() * 100:.2f}% of "
-              f"queries equal; differing rows {diff[:20].tolist()}")
-        if same.mean() < 0.99:
-            raise AssertionError(f"{kern} differs from {plain} on "
-                                 f"{len(diff)} queries")
-        summary[kern]["equal_to_plain"] = float(same.mean())
+    for prec in PRECISIONS:
+        for kern, plain in (("bw1_kernel", "bw1_plain"),
+                            ("bw4_kernel", "bw4_plain")):
+            kern, plain = _path_name(prec, kern), _path_name(prec, plain)
+            same = (ids[kern] == ids[plain]).all(1)
+            diff = np.flatnonzero(~same)
+            print(f"[full] {kern} vs {plain}: {same.mean() * 100:.2f}% of "
+                  f"queries equal; differing rows {diff[:20].tolist()}")
+            if same.mean() < 0.99:
+                raise AssertionError(f"{kern} differs from {plain} on "
+                                     f"{len(diff)} queries")
+            summary[kern]["equal_to_plain"] = float(same.mean())
+    for prec in PRECISIONS[1:]:
+        for path, _, _ in PATHS:
+            name = _path_name(prec, path)
+            same = (ids[name] == ids[path]).all(1)
+            summary[name]["equal_to_f32"] = float(same.mean())
+            print(f"[full] {name} vs {path}: {same.mean() * 100:.2f}% of "
+                  f"queries equal")
 
     # the graph alone (no scan routing) as ef grows: recall that climbs
     # toward 1 says the low recall at ef=64 is the beam's reach, not a
@@ -430,8 +668,9 @@ def phase_full(n, nq, batch, seed, ops):
         print(f"[full] graph bw4_kernel ef={ef}: qps={nq / dt:.1f} "
               f"recall@10={sweep[ef]['recall']:.4f} recall_by_level=" +
               ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
-    return dict(build=st, configs=summary, launches=launches,
-                graph_ef_sweep=sweep, batch=batch, nq=nq, n=n)
+    return dict(build=st, install_quantized_s=install, configs=summary,
+                launches=launches, graph_ef_sweep=sweep, batch=batch, nq=nq,
+                n=n)
 
 
 def phase_witness(seed, out: Path, n=100_000, nq=200):
@@ -503,6 +742,7 @@ def main() -> int:
     n_pad = -(-n // 128) * 128
     x_pad = torch.nn.functional.pad(vecs, (0, 0, 0, n_pad - n))
     rs, gd, gk = phase_parity(x_pad, vecs, n, args.seed)
+    qrecs, rr = phase_parity_quant(x_pad, vecs, n, args.seed)
     del vecs, x_pad
     torch.cuda.empty_cache()
 
@@ -512,38 +752,80 @@ def main() -> int:
     phase_witness(args.seed + 3, out)
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
+    la = full["launches"]
+
+    def variants(kernel, path, pick):
+        """Per-dtype readings of one kernel: its parity timing at the main
+        path's shape and its launches on that precision's path."""
+        res = {}
+        for prec, rec in qrecs[kernel].items():
+            r = pick(rec)
+            name = _path_name(prec, path)
+            res[prec] = dict(
+                launches=la[name][f"{kernel}.{prec}"], launches_path=name,
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], shape=r.get("shape"))
+        return res
+
+    scan_main = lambda rec: dict(
+        next(r for r in rec if r["bucket"] == 8192 and r["k"] == 128),
+        shape=f"q=64 d_pad=128 bucket=8192 k=128 n={n}")
+    rr_main = next(r for r in rr if r["m"] == 128 and r["k"] == 10)
     kern = [
         dict(name="range_scan", route="cuda",
              source="src/repro_torch/csrc/range_scan.cu",
              replaces="src/repro/kernels/range_scan.py:119",
-             launches=full["launches"]["bw1_kernel"]["range_scan"],
+             launches=la["bw1_kernel"]["range_scan.f32"],
              launches_path="bw1_kernel",
              max_abs_err=max(r["max_abs_err"] for r in rs),
              ms=main_rs["ms"], plain_ms=main_rs["plain_ms"],
              bound_ms=main_rs["bound_ms"], bound_by=main_rs["bound_by"],
              library_ms=None, parity_ok=True,
-             shape=f"q=64 d_pad=128 bucket=8192 k=10 n={n}"),
+             shape=f"q=64 d_pad=128 bucket=8192 k=10 n={n}",
+             variants=variants("range_scan", "bw1_kernel", scan_main)),
         dict(name="gather_dist", route="cuda",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:79",
-             launches=full["launches"]["bw1_kernel"]["gather_dist"],
+             launches=la["bw1_kernel"]["gather_dist.f32"],
              launches_path="bw1_kernel",
              max_abs_err=gd["max_abs_err"], ms=gd["ms"],
              plain_ms=gd["plain_ms"], bound_ms=gd["bound_ms"],
              bound_by=gd["bound_by"], library_ms=None, parity_ok=True,
-             shape="q=64 m=32 d=128"),
+             shape="q=64 m=32 d=128",
+             variants=variants("gather_dist", "bw1_kernel",
+                               lambda r: dict(r, shape="q=64 m=32 d=128"))),
         dict(name="gather_topk", route="cuda",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:179",
-             launches=full["launches"]["bw4_kernel"]["gather_topk"],
+             launches=la["bw4_kernel"]["gather_topk.f32"],
              launches_path="bw4_kernel",
              max_abs_err=gk["max_abs_err"], ms=gk["ms"],
              plain_ms=gk["plain_ms"], bound_ms=gk["bound_ms"],
              bound_by=gk["bound_by"], library_ms=None, parity_ok=True,
-             shape="q=64 m=128 k=64 d=128"),
+             shape="q=64 m=128 k=64 d=128",
+             variants=variants("gather_topk", "bw4_kernel",
+                               lambda r: dict(r,
+                                              shape="q=64 m=128 k=64 d=128"))),
+        dict(name="gather_rerank", route="cuda",
+             source="src/repro_torch/csrc/gather_dist.cu",
+             replaces="src/repro/kernels/gather_dist.py:260",
+             launches=la["int8_bw1_kernel"]["gather_rerank"],
+             launches_path="int8_bw1_kernel",
+             launches_by_path={c: cnt["gather_rerank"]
+                               for c, cnt in la.items()
+                               if cnt["gather_rerank"]},
+             max_abs_err=max(r["max_abs_err"] for r in rr),
+             ms=rr_main["ms"], plain_ms=rr_main["plain_ms"],
+             bound_ms=rr_main["bound_ms"], bound_by=rr_main["bound_by"],
+             library_ms=None, parity_ok=True,
+             shape="q=64 m=128 k=10 d=128 (the scan's survivors)",
+             other_shapes=[dict(r, shape=f"q=64 m={r['m']} k={r['k']} d=128")
+                           for r in rr if r is not rr_main]),
     ]
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
-                   gather_dist=gd, gather_topk=gk, full=full,
+                   gather_dist=gd, gather_topk=gk, quantized=qrecs,
+                   gather_rerank=rr, full=full,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

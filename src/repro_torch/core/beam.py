@@ -24,6 +24,10 @@ Two expansion paths, as in the reference:
   ``gather_dist`` + sort), folds them into the sorted pool with a bounded
   merge, and tracks visited nodes in a fixed-size lossy 2-probe hash table.
 
+With a quantized corpus (``quant=(data, scale)``) the traversal, entry
+distances included, scores against the int8/bf16 copy, and the final ef
+pool is rescored in f32 (``rerank_pool``) before the top-k is taken.
+
 The parity points with the reference: stable argsorts everywhere, the
 first-occurrence ``argmin``, the uint32 hash emulated in int64, the merge's
 ``searchsorted(side="left")``, and the hash table's scatter resolving
@@ -35,7 +39,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.quantize import sort_candidates
 
 INF = float("inf")
 
@@ -114,22 +119,39 @@ def _merge_sorted(pool_d, pool_i, pool_e, fresh_d, fresh_i, fresh_e,
     return md, mi, me
 
 
-def _pool_finish(cand_d, cand_ids, live, k: int):
+def rerank_pool(vecs, pool_ids, qv, k: int, use_kernel: bool):
+    """Exact f32 rescore of each query's candidate pool: the rerank stage
+    of the quantized paths.  Pool ids are sorted ascending first
+    (``sort_candidates``) so the top-k's tie toward the lower input index
+    is the exact path's tie toward the lower rank.  ``use_kernel`` runs the
+    ``gather_rerank`` kernel for every k (the reference leaves its kernel
+    above k = 128)."""
+    ids_s = sort_candidates(pool_ids)                        # (Q, M)
+    if use_kernel:
+        return ops.gather_rerank(vecs, ids_s, qv, k=k)
+    return ref.gather_rerank_ref(vecs, ids_s, qv, k=k)
+
+
+def _pool_finish(cand_d, cand_ids, live, k: int, quant):
     """Final pool stage: drop tombstoned candidates (``live`` (n,) bool —
     dead nodes stay traversable but never leave the search), then slice the
-    top-k.  The re-sort after masking is stable."""
+    top-k, or hand the whole pool to the f32 rerank under ``quant``.  The
+    re-sort after masking is stable."""
     if live is not None:
         dead = (cand_ids < 0) | ~live[cand_ids.clamp_min(0)]
         cand_d = torch.where(dead, INF, cand_d)
         o = torch.argsort(cand_d, dim=1, stable=True)
         cand_d, cand_ids = cand_d.gather(1, o), cand_ids.gather(1, o)
-    d = cand_d[:, :k]
-    return torch.where(torch.isfinite(d), cand_ids[:, :k], -1).to(torch.int32), d
+    if quant is None:
+        cand_d, cand_ids = cand_d[:, :k], cand_ids[:, :k]
+    return (torch.where(torch.isfinite(cand_d), cand_ids, -1).to(torch.int32),
+            cand_d)
 
 
-def _row_dists(x, ids, q):
-    """Plain Σ(x−q)² of each id's row (ids ≥ 0) against its query row."""
-    diff = x[ids] - q[:, None, :]
+def _row_dists(x, ids, q, scale=None):
+    """Plain Σ(x·scale−q)² of each id's row (ids ≥ 0) against its query
+    row, the row upcast to f32 first."""
+    diff = ref.dequantized_rows(x, ids, scale) - q[:, None, :]
     return torch.sum(diff * diff, dim=-1)
 
 
@@ -143,16 +165,18 @@ def _go(cand_d, expanded, steps, steps_cap: int):
     return (best <= worst) & (steps < steps_cap) & torch.isfinite(best)
 
 
-def _init_pool(vecs, qv, lo, hi, entry, ef: int):
-    """Entry candidates of every lane: ids, distances, expanded flags and
-    the in-range entry mask."""
-    n = vecs.shape[0]
+def _init_pool(x, scale, qv, lo, hi, entry, ef: int):
+    """Entry candidates of every lane: ids, distances (against x/scale, the
+    corpus the traversal scores), expanded flags and the in-range entry
+    mask."""
+    n = x.shape[0]
     nq = qv.shape[0]
     e0 = entry.reshape(nq, -1)[:, :ef].long()                 # (Q,E) multi-entry
     ev = (e0 >= 0) & ~(lo > hi)[:, None]
     e0c = e0.clamp(0, n - 1)
     ne = e0.shape[1]
-    d0 = torch.where(ev, torch.sum(torch.square(vecs[e0c] - qv[:, None, :]),
+    nv0 = ref.dequantized_rows(x, e0c, scale)
+    d0 = torch.where(ev, torch.sum(torch.square(nv0 - qv[:, None, :]),
                                    dim=-1), INF)
     cand_ids = torch.full((nq, ef), -1, dtype=torch.long, device=qv.device)
     cand_d = torch.full((nq, ef), INF, dtype=torch.float32, device=qv.device)
@@ -167,11 +191,17 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
                       qv: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       entry: torch.Tensor, *, k: int = 10, ef: int = 64,
                       use_kernel: bool = False, beam_width: int = 1,
-                      live: torch.Tensor | None = None):
+                      quant=None, live: torch.Tensor | None = None):
     """vecs:(n,d) f32; nbrs:(n,m) i32; qv:(Q,d); lo/hi:(Q,) rank ids;
     entry:(Q,) or (Q,E) entry ranks.  Returns (ids:(Q,k) i32 rank ids (-1
     pad), dists:(Q,k) f32, stats {"hops", "ndist"} (Q,) i32), all on the
     device of ``vecs``.
+
+    ``quant=(data, scale)`` scores the traversal against a quantized copy
+    (``data``: (n,d) int8/bf16 in the same rank order; ``scale``: (d,) f32
+    or None for bf16) and rescores the final pool in f32
+    (``rerank_pool``), so whenever the pool saw every true neighbor the
+    returned ids are the f32 ones.
 
     A lane stops after 8·ef+64 hops, or as soon as no finite unexpanded
     candidate remains (the reference's ``early_stop``).  ``beam_width=B>1``
@@ -192,26 +222,30 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
         return (torch.zeros((0, k), dtype=torch.int32, device=dev),
                 torch.zeros((0, k), dtype=torch.float32, device=dev),
                 {"hops": z, "ndist": z})
+    score = (vecs, None) if quant is None else quant
     if beam_width > 1:
         cand_d, cand_ids, steps, ndist = _beam_batched(
-            vecs, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
+            *score, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
             use_kernel=use_kernel, beam_width=beam_width)
     else:
         cand_d, cand_ids, steps, ndist = _beam_single(
-            vecs, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
+            *score, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
             use_kernel=use_kernel)
-    ids, dists = _pool_finish(cand_d, cand_ids, live, k)
+    ids, dists = _pool_finish(cand_d, cand_ids, live, k, quant)
+    if quant is not None:
+        ids, dists = rerank_pool(vecs, ids, qv, k, use_kernel)
     return ids, dists, {"hops": steps.to(torch.int32),
                         "ndist": ndist.to(torch.int32)}
 
 
-def _beam_single(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
-                 use_kernel: bool):
+def _beam_single(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
+                 steps_cap: int, use_kernel: bool):
+    """Single-node expansion; x/scale: the corpus the traversal scores."""
     n = nbrs.shape[0]
     nq = qv.shape[0]
-    dev = vecs.device
-    cand_d, cand_ids, expanded, e0c, ev = _init_pool(vecs, qv, lo, hi, entry,
-                                                     ef)
+    dev = x.device
+    cand_d, cand_ids, expanded, e0c, ev = _init_pool(x, scale, qv, lo, hi,
+                                                     entry, ef)
     visited = torch.zeros((nq, n + 1), dtype=torch.bool, device=dev)
     visited.scatter_(1, torch.where(ev, e0c, n), True)
     steps = torch.zeros(nq, dtype=torch.long, device=dev)
@@ -234,9 +268,9 @@ def _beam_single(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
         valid &= act[:, None]                   # a finished lane is frozen
         visited.scatter_(1, torch.where(valid, nb, n), True)
         if use_kernel:
-            d_nb = ops.gather_dist(vecs, nb32, qv)
+            d_nb = ops.gather_dist(x, nb32, qv, scale)
         else:
-            d_nb = _row_dists(vecs, nbc, qv)
+            d_nb = _row_dists(x, nbc, qv, scale)
         d_nb = torch.where(valid, d_nb, INF)
         ids_all = torch.cat([cand_ids, nb], dim=1)
         d_all = torch.cat([cand_d, d_nb], dim=1)
@@ -251,11 +285,12 @@ def _beam_single(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
     return cand_d, cand_ids, steps, ndist
 
 
-def _beam_batched(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
-                  use_kernel: bool, beam_width: int):
+def _beam_batched(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
+                  steps_cap: int, use_kernel: bool, beam_width: int):
+    """Batched expansion; x/scale: the corpus the traversal scores."""
     n, m = nbrs.shape
     nq = qv.shape[0]
-    dev = vecs.device
+    dev = x.device
     # the pool holds ef candidates, so at most ef can be unexpanded
     B = min(int(beam_width), ef)
     F = B * m                           # fresh neighbors per iteration
@@ -269,20 +304,20 @@ def _beam_batched(vecs, nbrs, qv, lo, hi, entry, *, ef: int, steps_cap: int,
         take) -> distance-sorted (Q,fm) fresh list (ids -1 / dist inf beyond
         the valid entries)."""
         if kernel_topk:
-            fi, fd = ops.gather_topk(vecs, torch.where(valid, ids32, -1), qv,
-                                     k=fm)
+            fi, fd = ops.gather_topk(x, torch.where(valid, ids32, -1), qv,
+                                     k=fm, scale=scale)
             return fd, fi.long()
         ids_m = torch.where(valid, ids_f, -1)
         if use_kernel:
-            d = ops.gather_dist(vecs, ids32, qv)
+            d = ops.gather_dist(x, ids32, qv, scale)
         else:
-            d = _row_dists(vecs, ids_f.clamp_min(0), qv)
+            d = _row_dists(x, ids_f.clamp_min(0), qv, scale)
         d = torch.where(valid, d, INF)
         o = torch.argsort(d, dim=1, stable=True)[:, :fm]
         return d.gather(1, o), ids_m.gather(1, o)
 
-    cand_d, cand_ids, expanded, e0c, ev = _init_pool(vecs, qv, lo, hi, entry,
-                                                     ef)
+    cand_d, cand_ids, expanded, e0c, ev = _init_pool(x, scale, qv, lo, hi,
+                                                     entry, ef)
     o = torch.argsort(cand_d, dim=1, stable=True)   # the merge keeps it sorted
     cand_d, cand_ids = cand_d.gather(1, o), cand_ids.gather(1, o)
     expanded = expanded.gather(1, o)

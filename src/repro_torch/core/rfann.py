@@ -53,6 +53,11 @@ class RNSGIndex:
     def planner(self):
         return self.substrate.planner
 
+    def install_quantized(self, precision: str) -> None:
+        """Pre-build the quantized corpus copies for one precision (int8 /
+        bf16) so the first ``precision=`` search pays no build cost."""
+        self.substrate.install_quantized(precision)
+
     def rank_range(self, attr_ranges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """[a_l, a_r] (inclusive) -> rank interval [L, R] (inclusive), on
         the host."""
@@ -69,7 +74,10 @@ class RNSGIndex:
         beam_width: batched-expansion width for beam dispatches (1 = the
         single-node hop; B>1 fuses B node expansions per hop).
         use_kernel: score the beam's neighbors with the gather kernels.
-        precision: only "f32" is ported so far.
+        precision: "f32" | "int8" | "bf16" — quantized scoring (scan and
+        traversal against the int8/bf16 corpus copy, ``install_quantized``)
+        with an exact f32 rerank of the survivors (same top-k ids as f32
+        whenever the survivors hold them).
         trace: optional ``repro_torch.obs.QueryTrace``.
         Returns a ``SearchResult`` (tuple-compatible: ids, dists, stats)."""
         with maybe_span(trace, "resolve") as sp:

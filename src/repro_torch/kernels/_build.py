@@ -25,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -35,17 +37,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points of each library, with their argument types
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "range_scan": {
-        # x, starts, lens, q, live, partial, out_ids, out_d,
+        # x, dtype, scale, starts, lens, q, live, partial, out_ids, out_d,
         # n_pad, d_pad, Q, w, k, n_valid, R, S, stream
-        "range_scan_launch": [_P] * 8 + [_I] * 8 + [_P],
+        "range_scan_launch": [_P, _I] + [_P] * 8 + [_I] * 8 + [_P],
     },
     "gather_dist": {
-        # x, ids, q, out, N, d, Q, M, stream
-        "gather_dist_launch": [_P] * 4 + [_I] * 4 + [_P],
-        # x, ids, q, out_ids, out_d, N, d, Q, M, k, stream
-        "gather_topk_launch": [_P] * 5 + [_I] * 5 + [_P],
+        # x, dtype, scale, ids, q, out, N, d, Q, M, stream
+        "gather_dist_launch": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+        # x, dtype, scale, ids, q, out_ids, out_d, N, d, Q, M, k, P, SZ,
+        # stream
+        "gather_topk_launch": [_P, _I] + [_P] * 5 + [_I] * 7 + [_P],
+        # x, ids, q, out_ids, out_d, scratch, N, d, Q, M, k, P, SZ, R, S,
+        # stream
+        "gather_rerank_launch": [_P] * 6 + [_I] * 9 + [_P],
     },
 }
+
+#: corpus element types the scoring kernels take, by their code in
+#: ``csrc/corpus.cuh``
+DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -116,6 +126,23 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def corpus_operands(x: torch.Tensor, scale, what: str):
+    """A corpus and its optional per-dimension scale as a kernel takes
+    them: (x contiguous, its dtype code, scale as contiguous (d,) f32 on
+    x's device or None).  Raises on a dtype no kernel takes."""
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise ValueError(f"{what}: corpus dtype {x.dtype} is not float32, "
+                         f"int8 or bfloat16")
+    if scale is not None:
+        scale = scale.to(device=x.device, dtype=torch.float32)
+        scale = scale.reshape(-1).contiguous()
+        if scale.numel() != x.shape[1]:
+            raise ValueError(f"{what}: scale has {scale.numel()} entries, "
+                             f"x has {x.shape[1]} columns")
+    return x.contiguous(), code, scale
 
 
 def check(rc: int, what: str) -> None:

@@ -9,10 +9,15 @@ happens to be installed:
   (``repro_torch/csrc``), built on first use; a failed build or launch
   raises.  There is no fallback.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
-kernel (a CPU call counts nothing), so a run can show that its path went
-through the kernels: zero the counts with ``reset_launches`` just before
-the run and read them just after."""
+The scoring kernels take an f32 corpus or a quantized copy (int8 with its
+per-dimension ``scale``, or bf16; ``repro_torch.kernels.quantize``).
+
+``LAUNCHES`` counts the wrapper calls that launched a CUDA kernel (a CPU
+call counts nothing): the scoring kernels per corpus dtype, under
+``"<kernel>.<f32|int8|bf16>"``, and ``"gather_rerank"``, so a run can show
+that its path went through the kernels, and through which variant: zero
+the counts with ``reset_launches`` just before the run and read them just
+after."""
 from __future__ import annotations
 
 from typing import Dict
@@ -21,8 +26,13 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"range_scan": 0, "gather_dist": 0,
-                            "gather_topk": 0}
+DTYPE_NAMES = {torch.float32: "f32", torch.int8: "int8",
+               torch.bfloat16: "bf16"}
+
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    [f"{kernel}.{dt}"
+     for kernel in ("range_scan", "gather_dist", "gather_topk")
+     for dt in DTYPE_NAMES.values()] + ["gather_rerank"], 0)
 
 
 def reset_launches() -> None:
@@ -30,25 +40,29 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _count(name: str, x: torch.Tensor | None = None) -> None:
+    LAUNCHES[name if x is None else f"{name}.{DTYPE_NAMES[x.dtype]}"] += 1
+
+
 def _tile(m: int, cap: int = 128) -> int:
     """The reference's lane-row size for an id vector of length m."""
     return int(min(cap, 1 << max(int(m) - 1, 0).bit_length() if m > 1 else 1))
 
 
-def gather_dist(x: torch.Tensor, ids: torch.Tensor,
-                q: torch.Tensor) -> torch.Tensor:
+def gather_dist(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
     """Fused gather + score: x (N,d), ids (Q,M) (clipped to [0, N-1]),
-    q (Q,d) -> (Q,M) Σ(x−q)².  Callers mask."""
+    q (Q,d) -> (Q,M) Σ(x·scale−q)².  Callers mask."""
     if x.device.type == "cpu":
-        return ref.gather_dist_ref(x, ids, q)
+        return ref.gather_dist_ref(x, ids, q, scale)
     from repro_torch.kernels.gather_dist import gather_dist_cuda
-    out = gather_dist_cuda(x, ids, q)
-    LAUNCHES["gather_dist"] += 1
+    out = gather_dist_cuda(x, ids, q, scale)
+    _count("gather_dist", x)
     return out
 
 
 def gather_topk(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
-                k: int):
+                k: int, scale: torch.Tensor | None = None):
     """Fused gather + score + top-k: the batched beam's frontier feed.
     ids (Q,M), negative = masked -> (ids:(Q,k) i32 ascending distance (-1
     pad), dists:(Q,k) f32 (+inf pad)), ties toward the lower input position.
@@ -59,25 +73,41 @@ def gather_topk(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
         raise ValueError(f"gather_topk: k={k} exceeds the {tile}-lane "
                          f"running top-k row (use gather_dist + sort)")
     if x.device.type == "cpu":
-        return ref.gather_topk_ref(x, ids, q, k=k)
+        return ref.gather_topk_ref(x, ids, q, k=k, scale=scale)
     from repro_torch.kernels.gather_dist import gather_topk_cuda
-    out = gather_topk_cuda(x, ids, q, k=k)
-    LAUNCHES["gather_topk"] += 1
+    out = gather_topk_cuda(x, ids, q, k=k, scale=scale)
+    _count("gather_topk", x)
+    return out
+
+
+def gather_rerank(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
+                  k: int):
+    """Batched f32 rescore of (Q, M) quantized-pass survivor ids (negative
+    = masked, sorted ascending by the caller) against (Q, d) queries: the
+    exactness-restoring stage of the quantized path.  Every M and every k
+    (the reference's kernel stops at k = 128)."""
+    if x.device.type == "cpu":
+        return ref.gather_rerank_ref(x, ids, q, k=k)
+    from repro_torch.kernels.gather_dist import gather_rerank_cuda
+    out = gather_rerank_cuda(x, ids, q, k=k)
+    _count("gather_rerank")
     return out
 
 
 def range_scan(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                q: torch.Tensor, *, bucket: int, k: int, n_valid: int = 0,
+               scale: torch.Tensor | None = None,
                live: torch.Tensor | None = None):
     """Per-query masked scan + top-k over contiguous rank slices of x.
     ``n_valid`` masks the zero rows padding x to a row-tile multiple
-    (0 = all of x is real); ``live`` ((1, n_pad) i32) masks tombstoned
-    rows."""
+    (0 = all of x is real); ``x`` may be a quantized corpus copy whose
+    ``scale`` dequantizes int8 rows; ``live`` ((1, n_pad) i32) masks
+    tombstoned rows."""
     if x.device.type == "cpu":
         return ref.range_scan_ref(x, starts, lens, q, bucket=bucket, k=k,
-                                  n_valid=n_valid, live=live)
+                                  n_valid=n_valid, live=live, scale=scale)
     from repro_torch.kernels.range_scan import range_scan_cuda
     out = range_scan_cuda(x, starts, lens, q, bucket=bucket, k=k,
-                          n_valid=n_valid, live=live)
-    LAUNCHES["range_scan"] += 1
+                          n_valid=n_valid, live=live, scale=scale)
+    _count("range_scan", x)
     return out

@@ -4,7 +4,8 @@ The planner's exact strategy for selective ranges: ids are attribute ranks,
 so a range query's candidates are the contiguous slice ``x[L : R+1]`` and a
 masked L2 scan + top-k beats graph traversal when the slice is small.  The
 kernel (``csrc/range_scan.cu``) replaces the reference's Pallas
-``range_scan_pallas``; its plain PyTorch version is
+``range_scan_pallas``, for an f32, int8 or bf16 corpus with an optional
+per-dimension f32 ``scale``; its plain PyTorch version is
 ``repro_torch.kernels.ref.range_scan_ref``.  Callers go through
 ``repro_torch.kernels.ops.range_scan``, which picks between the two by the
 device of the tensors."""
@@ -32,16 +33,18 @@ def window_rows(bucket: int, tb: int = 128) -> int:
 def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, q: torch.Tensor, *, bucket: int,
                     k: int, n_valid: int = 0,
-                    live: torch.Tensor | None = None):
-    """Launch the scan on CUDA tensors.  x:(n_pad, d_pad) f32 with
-    n_pad % 128 == 0 and d_pad % 128 == 0; starts/lens:(Q,); q:(Q, d_pad)
-    f32; ``live``: (1, n_pad) or (n_pad,), 0 = masked.  Returns (ids:(Q,k)
-    i32 ranks (-1 pad), dists:(Q,k) f32 (+inf pad)).  Raises on inputs the
-    kernel does not take and on a failed launch."""
+                    live: torch.Tensor | None = None,
+                    scale: torch.Tensor | None = None):
+    """Launch the scan on CUDA tensors.  x:(n_pad, d_pad) f32, int8 or bf16
+    with n_pad % 128 == 0 and d_pad % 128 == 0; ``scale``: (d_pad,) f32 or
+    None; starts/lens:(Q,); q:(Q, d_pad) f32; ``live``: (1, n_pad) or
+    (n_pad,), 0 = masked.  Returns (ids:(Q,k) i32 ranks (-1 pad),
+    dists:(Q,k) f32 (+inf pad)).  Raises on inputs the kernel does not take
+    and on a failed launch."""
     n_pad, d_pad = x.shape
     nq = q.shape[0]
-    if x.dtype != torch.float32 or q.dtype != torch.float32:
-        raise ValueError("range_scan: x and q must be float32")
+    if q.dtype != torch.float32:
+        raise ValueError("range_scan: q must be float32")
     if n_pad % 128 or d_pad % 128 or q.shape[1] != d_pad:
         raise ValueError(f"range_scan: x {tuple(x.shape)} must be padded to "
                          f"multiples of 128 and q {tuple(q.shape)} to d_pad")
@@ -63,7 +66,10 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
         r = SMEM_K
         s = 1 << (-(-w // r) - 1).bit_length()
     partial = torch.empty((nq, s, min(k, r)), dtype=torch.int64, device=dev)
-    x = x.contiguous()
+    x, code, scale = _build.corpus_operands(x, scale, "range_scan")
+    if x.data_ptr() % 16:
+        raise ValueError("range_scan: x must start on a 16-byte boundary "
+                         "(rows are read with vector loads)")
     q = q.contiguous()
     starts = starts.to(device=dev, dtype=torch.int32).contiguous()
     lens = lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -74,7 +80,8 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
                              f"x has {n_pad} rows")
     lib = _build.library("range_scan")
     rc = lib.range_scan_launch(
-        x.data_ptr(), starts.data_ptr(), lens.data_ptr(), q.data_ptr(),
+        x.data_ptr(), code, None if scale is None else scale.data_ptr(),
+        starts.data_ptr(), lens.data_ptr(), q.data_ptr(),
         None if live is None else live.data_ptr(), partial.data_ptr(),
         ids.data_ptr(), dists.data_ptr(), n_pad, d_pad, nq, w, k,
         int(n_valid) or n_pad, r, s,

@@ -9,7 +9,11 @@ the card.
 
 Top-k is a stable ascending sort of the distances, i.e. the lexicographic
 key (dist, position), which is the tie order of ``lax.top_k`` and of the
-reference kernels' first-occurrence select-min."""
+reference kernels' first-occurrence select-min.
+
+A corpus ``x`` may be f32 or a quantized copy (int8/bf16, see
+``repro_torch.kernels.quantize``): rows are upcast to f32 and multiplied
+by the optional (d,) f32 ``scale`` before scoring, as the kernels do."""
 from __future__ import annotations
 
 import torch
@@ -33,28 +37,45 @@ def _smallest(d: torch.Tensor, ids: torch.Tensor, k: int):
     return ik.to(torch.int32), dk
 
 
-def gather_dist_ref(x: torch.Tensor, ids: torch.Tensor,
-                    q: torch.Tensor) -> torch.Tensor:
-    """x:(N,d) f32; ids:(Q,M) (clipped to [0, N-1]); q:(Q,d) -> (Q,M)
-    Σ(x−q)², the difference form of ``gather_dist_pallas``."""
-    rows = x[ids.long().clamp(0, x.shape[0] - 1)]
+def dequantized_rows(x: torch.Tensor, idx: torch.Tensor,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """f32 rows ``x[idx]`` (any index shape), times ``scale`` when given."""
+    rows = x[idx].float()
+    return rows if scale is None else rows * scale
+
+
+def gather_dist_ref(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x:(N,d) f32/int8/bf16; ids:(Q,M) (clipped to [0, N-1]); q:(Q,d) ->
+    (Q,M) Σ(x·scale−q)², the difference form of ``gather_dist_pallas``."""
+    rows = dequantized_rows(x, ids.long().clamp(0, x.shape[0] - 1), scale)
     diff = rows - q[:, None, :]
     return torch.sum(diff * diff, dim=-1)
 
 
 def gather_topk_ref(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
-                    k: int):
+                    k: int, scale: torch.Tensor | None = None):
     """(Q,M) ids, negative = masked -> per-query (ids:(Q,k) i32 ascending
     distance (-1 pad), dists:(Q,k) f32 (+inf pad)), ties toward the lower
     input position."""
     ids = ids.long()
-    d = torch.where(ids >= 0, gather_dist_ref(x, ids, q), INF)
+    d = torch.where(ids >= 0, gather_dist_ref(x, ids, q, scale), INF)
     return _smallest(d, ids, k)
+
+
+def gather_rerank_ref(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
+                      k: int):
+    """The f32 rerank: x:(N,d) f32; ids:(Q,M) survivor ranks (negative =
+    masked, sorted ascending by the caller); q:(Q,d) -> (ids:(Q,k),
+    dists:(Q,k)), ties toward the lower input index — the reference's
+    batched ``gather_rerank_ref``, for every k."""
+    return gather_topk_ref(x, ids, q, k=k)
 
 
 def range_scan_ref(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                    q: torch.Tensor, *, bucket: int, k: int,
-                   n_valid: int = 0, live: torch.Tensor | None = None):
+                   n_valid: int = 0, live: torch.Tensor | None = None,
+                   scale: torch.Tensor | None = None):
     """x:(n_pad,d_pad) rank-ordered; starts/lens:(Q,); q:(Q,d_pad) ->
     (ids:(Q,k) i32 absolute ranks (-1 pad), dists:(Q,k) f32 (+inf pad)).
 
@@ -62,7 +83,9 @@ def range_scan_ref(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
     below each start, masks ranks outside ``[start, start+len)``, at or past
     ``n_valid``, or with ``live[rank] == 0`` (``live``: (n_pad,)), and uses
     the Pallas kernel's **expansion form** max(‖q‖²−2q·x+‖x‖², 0) — not the
-    difference form of the reference's ``range_scan_ref``."""
+    difference form of the reference's ``range_scan_ref``.  A quantized
+    ``x`` is dequantized (``scale``: (d_pad,) f32) before the expansion, as
+    the Pallas body does."""
     n_pad = x.shape[0]
     n_valid = int(n_valid) or n_pad
     w = window_rows(bucket)
@@ -71,7 +94,7 @@ def range_scan_ref(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
     base = torch.div(starts, 128, rounding_mode="floor") * 128
     rank = base[:, None] + torch.arange(w, device=x.device)[None, :]   # (Q,w)
     rc = rank.clamp(0, n_pad - 1)
-    rows = x[rc]                                                       # (Q,w,d)
+    rows = dequantized_rows(x, rc, scale)                              # (Q,w,d)
     dot = torch.einsum("qwd,qd->qw", rows, q)
     qn = torch.sum(q * q, dim=1, keepdim=True)
     xn = torch.sum(rows * rows, dim=-1)

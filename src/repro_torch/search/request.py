@@ -11,11 +11,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-STRATEGIES = ("graph", "auto", "scan", "beam")
+from repro_torch.kernels.quantize import PRECISIONS
 
-# the reference's precisions; this port scores f32 only until its quantized
-# slice lands (the substrate raises NotImplementedError for the others)
-PRECISIONS = ("f32", "int8", "bf16")
+STRATEGIES = ("graph", "auto", "scan", "beam")
 
 
 def _invalid(field_name: str, value, requirement: str) -> ValueError:

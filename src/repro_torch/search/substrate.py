@@ -8,7 +8,9 @@ one device:
 * dispatch     — ``graph`` runs the paper's beam search over the full batch;
                  ``auto``/``scan``/``beam`` go through the adaptive planner,
                  which partitions the batch into fixed-shape dispatches
-                 (the ``range_scan`` kernel | bucketed beam search);
+                 (the ``range_scan`` kernel | bucketed beam search).  A
+                 quantized ``precision`` scores against the int8/bf16 corpus
+                 copy and reranks the survivors in f32;
 * stitch       — partition results land back in request order, rank ids are
                  remapped to original corpus ids, and per-query stats
                  (hops / ndist / strategy) are assembled.
@@ -21,21 +23,22 @@ model: observed ``ndist`` from beam stats and warm-call wall times per work
 unit (the first call of each signature is excluded, so the kernels' build
 never enters calibration).
 
-Not ported yet: the result cache, the metrics registry, the quantized
-corpus slots (``precision`` other than ``"f32"`` raises) and the mesh
+Not ported yet: the result cache, the metrics registry and the mesh
 substrate.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional, Set, Tuple
+from typing import Callable, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.beam import beam_search_batch
+from repro_torch.core.beam import beam_search_batch, rerank_pool
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import range_scan
+from repro_torch.kernels.quantize import (QuantizedCorpus, quantize_corpus,
+                                          rerank_depth)
 from repro_torch.obs.trace import maybe_span
 from repro_torch.planner.bucketing import ROW_TILE, window_rows
 from repro_torch.planner.planner import QueryPlanner
@@ -92,6 +95,7 @@ class SearchSubstrate:
         deg = float((self._nbrs >= 0).sum(1).float().mean()) if n else 1.0
         self.planner = QueryPlanner(max(n, 1), deg)
         self._x_pad = None          # padded scan copy, built on first scan
+        self._quant: Dict[str, dict] = {}   # precision -> quantized slots
         self._live_memo = None      # (mask, (n,) bool dev, (1,n_pad) i32 dev)
         self._warm: Set[Tuple] = set()
 
@@ -112,17 +116,13 @@ class SearchSubstrate:
         ``defer=False`` blocks each planned partition before dispatching the
         next and calibrates on its wall time.  A ``req.trace`` collects plan
         / dispatch / stitch spans."""
-        if req.precision != "f32":
-            raise NotImplementedError(
-                f"precision={req.precision!r}: the quantized corpus arrives "
-                f"with the port's quantized slice")
         qv = np.asarray(req.queries, np.float32)
         lo = np.asarray(req.lo, np.int64)
         hi = np.asarray(req.hi, np.int64)
         fin = self._dispatch_all(qv, lo, hi, int(req.k), int(req.ef),
                                  req.strategy, req.use_kernel, defer,
-                                 int(req.beam_width), trace=req.trace,
-                                 live=req.live)
+                                 int(req.beam_width), req.precision,
+                                 trace=req.trace, live=req.live)
         return PendingSearch(self._stitched(fin, req.trace))
 
     def _stitched(self, fin: Callable[[], SearchResult],
@@ -141,24 +141,26 @@ class SearchSubstrate:
 
     # ----------------------------------------------------------- dispatch
     def _dispatch_all(self, qv, lo, hi, k, ef, strategy, use_kernel,
-                      defer: bool, beam_width: int = 1, trace=None,
+                      defer: bool, beam_width: int = 1,
+                      precision: str = "f32", trace=None,
                       live=None) -> Callable[[], SearchResult]:
         """Enqueue the work for one batch; the returned closure blocks,
         stitches, and remaps rank ids to original ids."""
         with maybe_span(trace, "dispatch") as sp:
             sp.attrs.update(strategy_mode=strategy, use_kernel=use_kernel,
-                            beam_width=beam_width, precision="f32",
+                            beam_width=beam_width, precision=precision,
                             dispatched=len(qv), deferred=defer)
             if strategy == "graph":
                 if trace is not None:
                     trace.add_span("plan", strategy_mode="graph",
                                    chosen="graph", beam_width=beam_width)
                 fin = self._dispatch_graph(qv, lo, hi, k, ef, use_kernel,
-                                           beam_width, live=live)
+                                           beam_width, precision, live=live)
             else:
                 fin = self._dispatch_planned(qv, lo, hi, k, ef, strategy,
                                              use_kernel, defer, beam_width,
-                                             trace=trace, span=sp, live=live)
+                                             precision, trace=trace, span=sp,
+                                             live=live)
 
         def finalize() -> SearchResult:
             ids, dists, stats = fin()
@@ -168,8 +170,10 @@ class SearchSubstrate:
 
     # ------------------------------------------------------ graph strategy
     def _dispatch_graph(self, qv, lo, hi, k, ef, use_kernel, beam_width=1,
-                        live=None):
-        """The paper's path: one beam-search dispatch over the full batch."""
+                        precision="f32", live=None):
+        """The paper's path: one beam-search dispatch over the full batch.
+        Non-f32 precisions score the traversal against the quantized corpus
+        and rerank the final pool in f32 inside ``beam_search_batch``."""
         dev = self.device
         qj = torch.as_tensor(qv, device=dev)
         lo_j = torch.as_tensor(lo, device=dev)
@@ -180,7 +184,8 @@ class SearchSubstrate:
         ids, dists, st = beam_search_batch(
             self._vecs, self._nbrs, qj, lo_j, hi_j, entry,
             k=k, ef=max(ef, k), use_kernel=use_kernel,
-            beam_width=beam_width, live=live_b)
+            beam_width=beam_width, quant=self._quant_ops(precision),
+            live=live_b)
 
         def finalize():
             st_h = {kk: vv.cpu().numpy() for kk, vv in st.items()}
@@ -191,26 +196,30 @@ class SearchSubstrate:
 
     # ---------------------------------------------------- planned strategies
     def _dispatch_planned(self, qv, lo, hi, k, ef, mode, use_kernel,
-                          defer: bool, beam_width: int = 1, trace=None,
+                          defer: bool, beam_width: int = 1,
+                          precision: str = "f32", trace=None,
                           span=None, live=None):
         """Routing policy: plan the batch, dispatch each fixed-shape
         partition, stitch back in request order."""
         q = len(qv)
         if trace is None:
             plan = self.planner.plan_batch(lo, hi, k=k, ef=ef, mode=mode,
-                                           beam_width=beam_width)
+                                           beam_width=beam_width,
+                                           precision=precision)
         else:
             with trace.span("plan") as psp:
                 plan = self.planner.plan_batch(lo, hi, k=k, ef=ef,
                                                mode=mode,
-                                               beam_width=beam_width)
+                                               beam_width=beam_width,
+                                               precision=precision)
                 lens = np.clip(hi - lo + 1, 0, None)
                 sc, bc = self.planner.predict_costs(lens, k=k, ef=ef,
-                                                    beam_width=beam_width)
+                                                    beam_width=beam_width,
+                                                    precision=precision)
                 psp.attrs.update(
                     strategy_mode=mode, strategy=plan.strategy.copy(),
                     scan_frac=plan.scan_frac, beam_width=beam_width,
-                    precision="f32",
+                    precision=precision,
                     partitions=[p.signature for p in plan.partitions],
                     predicted_scan_units=sc, predicted_beam_units=bc)
         if span is not None:
@@ -220,8 +229,9 @@ class SearchSubstrate:
         for part in plan.partitions:
             if part.kind == "scan":
                 fin = self._dispatch_scan(qv, lo, hi, part.indices,
-                                          part.param, part.pad_q, k,
+                                          part.param, part.pad_q, k, ef,
                                           calibrate_wall=not defer,
+                                          precision=precision, trace=trace,
                                           live=live)
             else:
                 fin = self._dispatch_beam(qv, lo, hi, part.indices,
@@ -229,7 +239,8 @@ class SearchSubstrate:
                                           calibrate=(mode == "auto"),
                                           calibrate_wall=not defer,
                                           use_kernel=use_kernel,
-                                          beam_width=beam_width, live=live)
+                                          beam_width=beam_width,
+                                          precision=precision, live=live)
             if not defer:
                 val = fin()
                 fin = (lambda v: lambda: v)(val)
@@ -288,8 +299,63 @@ class SearchSubstrate:
         self._live_memo = (live,) + out
         return out
 
+    # --------------------------------------------------- quantized corpus
+    def install_quantized(self, precision: str) -> None:
+        """Build (or rebuild) the quantized corpus copies for one precision
+        ahead of serving, so the first quantized request pays no build
+        cost.  The lazy build happens anyway on first use
+        (``_quant_for``)."""
+        if precision != "f32":
+            self._quant.pop(precision, None)
+            self._quant_for(precision)
+
+    def _quant_for(self, precision: str) -> Optional[dict]:
+        """Quantized scoring slots for one precision (lazy, cached):
+        ``data`` (n,d) for the beam's gathered rows, ``data_pad``
+        (n_pad,d_pad) rank-ordered for the scan kernel, ``scale`` /
+        ``scale_pad`` ((d,)/(d_pad,) f32, int8 only; padding the scale with
+        1.0 is inert because padded query and corpus lanes are zero)."""
+        if precision == "f32":
+            return None
+        slot = self._quant.get(precision)
+        if slot is None:
+            slot = self._slot_of(quantize_corpus(self._vecs, precision))
+            self._quant[precision] = slot
+        return slot
+
+    def _quant_ops(self, precision: str):
+        """The beam's ``quant`` operand, (data, scale), or None for f32."""
+        slot = self._quant_for(precision)
+        return None if slot is None else (slot["data"], slot["scale"])
+
+    def _slot_of(self, qc: QuantizedCorpus) -> dict:
+        """Scoring slots from one quantized corpus copy (shared by the lazy
+        quantize path and the preload path)."""
+        n_pad = -(-self.n // self.tb) * self.tb
+        data_pad = torch.nn.functional.pad(
+            qc.data, (0, self.d_pad - self.d, 0, n_pad - self.n))
+        scale_pad = None if qc.scale is None else torch.nn.functional.pad(
+            qc.scale, (0, self.d_pad - self.d), value=1.0)
+        return dict(data=qc.data, data_pad=data_pad,
+                    scale=qc.scale, scale_pad=scale_pad,
+                    bytes_per_vector=qc.bytes_per_vector)
+
+    def preload_quantized(self, precision: str, data, scale=None) -> None:
+        """Attach a prebuilt quantized corpus copy without re-quantizing.
+        ``data`` may arrive as an exact f32 upcast; it is narrowed back to
+        the precision's dtype here, which round-trips bit-exactly."""
+        if precision == "f32":
+            return
+        dt = torch.bfloat16 if precision == "bf16" else torch.int8
+        qc = QuantizedCorpus(
+            precision, torch.as_tensor(data, device=self.device).to(dt),
+            None if scale is None else
+            torch.as_tensor(scale, dtype=torch.float32, device=self.device))
+        self._quant[precision] = self._slot_of(qc)
+
     def _dispatch_scan(self, qv, lo, hi, idx, bucket: int, pad_q: int,
-                       k: int, *, calibrate_wall: bool, live=None):
+                       k: int, ef: int, *, calibrate_wall: bool,
+                       precision: str = "f32", trace=None, live=None):
         nq = len(idx)
         starts = np.zeros(pad_q, np.int32)
         lens = np.zeros(pad_q, np.int32)
@@ -297,17 +363,31 @@ class SearchSubstrate:
         lens[:nq] = np.clip(hi[idx] - lo[idx] + 1, 0, bucket)
         qp = np.zeros((pad_q, self.d_pad), np.float32)
         qp[:nq, :self.d] = qv[idx]
+        slot = self._quant_for(precision)
         _, live_row = self._live_ops(live)
-        sig = ("scan", bucket, pad_q, k, live is not None)
+        sig = ("scan", bucket, pad_q, k, precision, live is not None)
         warm = sig in self._warm
         self._warm.add(sig)
         dev = self.device
         t0 = time.perf_counter()
-        ids, d = range_scan(self._scan_corpus(),
-                            torch.as_tensor(starts, device=dev),
-                            torch.as_tensor(lens, device=dev),
-                            torch.as_tensor(qp, device=dev),
-                            bucket=bucket, k=k, live=live_row)
+        st_j = torch.as_tensor(starts, device=dev)
+        ln_j = torch.as_tensor(lens, device=dev)
+        qp_j = torch.as_tensor(qp, device=dev)
+        if slot is None:
+            ids, d = range_scan(self._scan_corpus(), st_j, ln_j, qp_j,
+                                bucket=bucket, k=k, live=live_row)
+        else:
+            # the quantized scan keeps rerank_depth survivors (tombstoned
+            # rows are masked in the kernel, so the pool is live-only) ...
+            rq = rerank_depth(k, ef, cap=self.tb)
+            ids_q, _ = range_scan(slot["data_pad"], st_j, ln_j, qp_j,
+                                  bucket=bucket, k=rq,
+                                  scale=slot["scale_pad"], live=live_row)
+            # ... and an f32 rescore of those ids restores the exact top-k
+            with maybe_span(trace, "rerank", precision=precision,
+                            rows=pad_q * rq, k=k):
+                ids, d = rerank_pool(self._vecs, ids_q, qp_j[:, :self.d], k,
+                                     use_kernel=True)
         units = window_rows(bucket, self.tb)
 
         def finalize():
@@ -316,14 +396,15 @@ class SearchSubstrate:
             dt = time.perf_counter() - t0
             if calibrate_wall and warm:
                 # pad_q windows of work were done, not nq
-                self.planner.cost.observe_wall("scan", units, dt, pad_q)
+                self.planner.cost.observe_wall("scan", units, dt, pad_q,
+                                               precision=precision)
             return ids_h, d_h, units
         return finalize
 
     def _dispatch_beam(self, qv, lo, hi, idx, ef: int, pad_q: int, k: int, *,
                        calibrate: bool, calibrate_wall: bool = True,
                        use_kernel: bool = False, beam_width: int = 1,
-                       live=None):
+                       precision: str = "f32", live=None):
         nq = len(idx)
         if nq == 0:                 # empty partition: nothing to dispatch
             empty = np.zeros(0, np.int32)
@@ -337,7 +418,8 @@ class SearchSubstrate:
         entry = resolve.select_entry(self._rmq, self._dist_c, lo_j, hi_j,
                                      self.n)
         live_b, _ = self._live_ops(live)
-        sig = ("beam", ef, pad_q, k, beam_width, live is not None)
+        quant = self._quant_ops(precision)
+        sig = ("beam", ef, pad_q, k, beam_width, precision, live is not None)
         warm = sig in self._warm
         self._warm.add(sig)
         t0 = time.perf_counter()
@@ -346,7 +428,7 @@ class SearchSubstrate:
             torch.as_tensor(lo[pad], device=dev),
             torch.as_tensor(hi[pad], device=dev),
             entry, k=k, ef=max(ef, k), use_kernel=use_kernel,
-            beam_width=beam_width, live=live_b)
+            beam_width=beam_width, quant=quant, live=live_b)
 
         def finalize():
             ids_h = ids.cpu().numpy()[:nq]
@@ -361,7 +443,7 @@ class SearchSubstrate:
                     # pad_q lanes of ~ndist work each
                     self.planner.cost.observe_wall(
                         "beam", max(float(st_h["ndist"].mean()), 1.0), dt,
-                        pad_q)
+                        pad_q, precision=precision)
             return ids_h, d_h, st_h
         return finalize
 

@@ -1,7 +1,8 @@
-"""On the card: each hand-written kernel against its plain PyTorch version,
-and the slice end to end.  Marked ``gpu``; every test skips (inside the
-``cuda`` fixture) where no card is present.  Run on the card with
-``pytest -m gpu tests/test_torch_*.py``."""
+"""On the card: each hand-written kernel against its plain PyTorch version
+(f32, int8 and bf16 corpora; the f32 rerank at every M and k), the quantized
+corpus against the CPU's bit for bit, and the slices end to end.  Marked
+``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
+present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
 import numpy as np
 import pytest
 import torch
@@ -69,6 +70,96 @@ def test_gather_kernels_match_plain(cuda, m, k):
     _same(ops.gather_topk(x, ids, qv, k=k), ref.gather_topk_ref(x, ids, qv, k=k))
 
 
+def _quantized(x, precision):
+    from repro_torch.kernels.quantize import quantize_corpus
+    qc = quantize_corpus(x, precision)
+    return qc.data, qc.scale
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+@pytest.mark.parametrize("bucket,k", [(512, 10), (8192, 128), (4096, 300)])
+def test_range_scan_quantized_kernel_matches_plain(cuda, precision, bucket,
+                                                   k):
+    rng = np.random.default_rng(bucket + k)
+    n, q = 9000, 16
+    x = torch.zeros((9088, 128), device=cuda)
+    x[:n] = torch.as_tensor(rng.standard_normal((n, 128)) * 3, device=cuda,
+                            dtype=torch.float32)
+    data, scale = _quantized(x, precision)
+    starts = torch.as_tensor(rng.integers(0, n, q), device=cuda)
+    lens = torch.as_tensor(rng.integers(0, bucket + 1, q), device=cuda)
+    lens[0] = 0
+    qv = torch.as_tensor(rng.standard_normal((q, 128)), device=cuda,
+                         dtype=torch.float32)
+    live = torch.as_tensor(rng.random((1, 9088)) < 0.7, device=cuda).int()
+    for kw in ({}, {"n_valid": n}, {"live": live}):
+        got = ops.range_scan(data, starts, lens, qv, bucket=bucket, k=k,
+                             scale=scale, **kw)
+        want = ref.range_scan_ref(data, starts, lens, qv, bucket=bucket, k=k,
+                                  scale=scale, **kw)
+        _same(got, want, atol=0.1)
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+@pytest.mark.parametrize("m,k,d", [(32, 32, 128), (128, 64, 128),
+                                   (37, 9, 24)])
+def test_gather_quantized_kernels_match_plain(cuda, precision, m, k, d):
+    rng = np.random.default_rng(m + d)
+    x = torch.as_tensor(rng.standard_normal((3000, d)) * 3, device=cuda,
+                        dtype=torch.float32)
+    data, scale = _quantized(x, precision)
+    ids = torch.as_tensor(rng.integers(-3, 3003, (64, m)), device=cuda)
+    qv = torch.as_tensor(rng.standard_normal((64, d)), device=cuda,
+                         dtype=torch.float32)
+    got = ops.gather_dist(data, ids, qv, scale).cpu().numpy()
+    want = ref.gather_dist_ref(data, ids, qv, scale).cpu().numpy()
+    assert np.allclose(got, want, rtol=1e-5, atol=1e-2)
+    ids = torch.where(ids >= 3000, -1, ids)
+    _same(ops.gather_topk(data, ids, qv, k=k, scale=scale),
+          ref.gather_topk_ref(data, ids, qv, k=k, scale=scale), atol=0.1)
+
+
+@pytest.mark.parametrize("m,k", [(128, 10), (64, 10), (4096, 200),
+                                 (4096, 10), (30000, 128), (5, 8),
+                                 (9000, 3000)])
+def test_gather_rerank_kernel_matches_plain(cuda, m, k):
+    """Every M (past one block's tile) and every k (past 128, and past the
+    shared-memory running best), masked entries and an all-masked row."""
+    from repro_torch.kernels.quantize import sort_candidates
+    rng = np.random.default_rng(m + k)
+    x = torch.as_tensor(rng.standard_normal((50000, 128)), device=cuda,
+                        dtype=torch.float32)
+    ids = torch.as_tensor(rng.integers(0, 50000, (8, m)), device=cuda)
+    ids = torch.where(torch.as_tensor(rng.random((8, m)) < 0.2,
+                                      device=cuda), -1, ids)
+    ids[1] = -1
+    ids = sort_candidates(ids)
+    qv = torch.as_tensor(rng.standard_normal((8, 128)), device=cuda,
+                         dtype=torch.float32)
+    ops.reset_launches()
+    got = ops.gather_rerank(x, ids, qv, k=k)
+    assert ops.LAUNCHES["gather_rerank"] == 1
+    _same(got, ref.gather_rerank_ref(x, ids, qv, k=k))
+
+
+def test_quantized_corpus_on_card_equals_cpu(cuda):
+    from repro_torch.kernels.quantize import quantize_corpus
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((5000, 128)) *
+         rng.uniform(0.01, 50, 128)).astype(np.float32)
+    x[:, 7] = 0
+    for p in ("int8", "bf16"):
+        a = quantize_corpus(torch.as_tensor(x), p)
+        b = quantize_corpus(torch.as_tensor(x, device=cuda), p)
+        assert torch.equal(a.data.view(torch.uint8 if p == "int8"
+                                       else torch.int16),
+                           b.data.cpu().view(torch.uint8 if p == "int8"
+                                             else torch.int16))
+        if p == "int8":
+            assert torch.equal(a.scale.view(torch.int32),
+                               b.scale.cpu().view(torch.int32))
+
+
 def test_slice_end_to_end_on_card(cuda):
     """Build on the card, then every strategy × width × kernel choice
     returns the exact brute-force ids at ef >= n, through the kernels."""
@@ -82,11 +173,14 @@ def test_slice_end_to_end_on_card(cuda):
     idx = RNSGIndex.build(v, a, m=16, ef_spatial=16, ef_attribute=24)
     gt, _ = ground_truth(v, a, qv, rg, 10)
     ops.reset_launches()
-    for plan in ("graph", "auto", "scan", "beam"):
-        for bw in (1, 4):
-            for uk in (False, True):
-                ids = idx.search(qv, rg, k=10, ef=n, plan=plan,
-                                 beam_width=bw, use_kernel=uk).ids
-                for r in range(len(qv)):
-                    assert set(ids[r][ids[r] >= 0]) == set(gt[r][gt[r] >= 0])
+    for precision in ("f32", "int8", "bf16"):
+        for plan in ("graph", "auto", "scan", "beam"):
+            for bw in (1, 4):
+                for uk in (False, True):
+                    ids = idx.search(qv, rg, k=10, ef=n, plan=plan,
+                                     beam_width=bw, use_kernel=uk,
+                                     precision=precision).ids
+                    for r in range(len(qv)):
+                        assert set(ids[r][ids[r] >= 0]) == \
+                            set(gt[r][gt[r] >= 0])
     assert all(c > 0 for c in ops.LAUNCHES.values()), ops.LAUNCHES

@@ -40,7 +40,8 @@ def test_port_modules_all_present():
             "core/construction.py", "core/beam.py", "search/request.py",
             "search/resolve.py", "planner/bucketing.py", "planner/cost.py",
             "planner/planner.py", "obs/trace.py", "search/substrate.py",
-            "core/rfann.py", "csrc/range_scan.cu", "csrc/gather_dist.cu"]
+            "core/rfann.py", "kernels/quantize.py", "csrc/range_scan.cu",
+            "csrc/gather_dist.cu", "csrc/corpus.cuh", "csrc/topk_key.cuh"]
     assert [p for p in want if not (PORT / p).exists()] == []
 
 

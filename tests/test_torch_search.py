@@ -183,10 +183,23 @@ def test_select_entry_and_merge_topk_match_reference(pair):
 
 
 def test_trace_spans_and_unported_precision(pair):
+    """An f32 search traces exactly resolve/plan/dispatch/stitch; a
+    quantized scan adds one rerank span per scan partition, each naming the
+    precision; a precision neither package has is refused with the
+    reference's message."""
     _, port, qv, ranges, _ = pair
     tr = QueryTrace("r1")
     res = port.search(qv, ranges, k=K, ef=32, plan="auto", trace=tr)
     assert res.trace is tr
     assert tr.names() == ["resolve", "plan", "dispatch", "stitch"]
-    with pytest.raises(NotImplementedError):
-        port.search(qv, ranges, k=K, precision="int8")
+    tr = QueryTrace("r2")
+    res = port.search(qv, ranges, k=K, ef=32, plan="scan", trace=tr,
+                      precision="int8")
+    assert res.trace is tr
+    names = tr.names()
+    assert names[:2] == ["resolve", "plan"] and names[-2:] == ["dispatch",
+                                                               "stitch"]
+    assert set(names[2:-2]) == {"rerank"}          # one per scan partition
+    assert all(sp.attrs["precision"] == "int8" for sp in tr.spans[1:-1])
+    with pytest.raises(ValueError, match="invalid precision='f16'"):
+        port.search(qv, ranges, k=K, precision="f16")
