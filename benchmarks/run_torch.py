@@ -1,0 +1,634 @@
+"""Benchmark driver of the PyTorch port — one function per paper
+table/figure, the counterpart of ``benchmarks/run.py`` over ``repro_torch``.
+
+  PYTHONPATH=src python -m benchmarks.run_torch [--full] [--only qps_recall,...]
+                                                [--n N] [--device cuda|cpu]
+
+Prints ``name,us_per_call,derived`` CSV summary lines (full per-point tables
+land in results/bench_torch/*.csv).  Every index is built and searched on
+``--device`` (default the card; ``cpu`` runs the kernels' plain PyTorch
+versions, and its times are CPU times).  The benches of paths the port has
+not reached yet (``PENDING``) exit non-zero when asked for.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from benchmarks.common_torch import (build_methods, build_seconds, dataset,
+                                     emit, emit_bench_json, gt_for,
+                                     recall_at_k, timed_search, workloads)
+from repro_torch.core.rfann import RNSGIndex
+from repro_torch.data.ann import mixed_workload, selectivity_ranges
+from repro_torch.device import resolve_device
+
+#: H100 SXM peaks for the kernel bounds: HBM3 bytes/s, f32 FLOP/s outside
+#: the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bench_qps_recall(n, d, nq, quick, device, methods=None):
+    """Paper Fig. 6: QPS vs recall per method × workload (ef sweep)."""
+    vecs, attrs = dataset(n, d)
+    methods = methods or build_methods(vecs, attrs, quick, device)
+    wls = workloads(attrs, nq)
+    k = 10
+    rows = []
+    for wname, ranges in wls.items():
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        for mname, ix in methods.items():
+            for ef in ((16, 32, 64, 128) if mname != "brute" else (0,)):
+                (ids, _, *_), qps = timed_search(ix, qv, ranges, k, max(ef, k))
+                rows.append(dict(method=mname, workload=wname, ef=ef,
+                                 recall=round(recall_at_k(ids, gt), 4),
+                                 qps=round(qps, 1)))
+    emit("qps_recall", rows, quiet=True)
+    return rows
+
+
+def bench_construction_time(n, d, quick, device, methods=None):
+    """Paper Fig. 7: index construction time."""
+    vecs, attrs = dataset(n, d)
+    methods = methods or build_methods(vecs, attrs, quick, device)
+    rows = [dict(method=m, build_seconds=round(build_seconds(ix), 2))
+            for m, ix in methods.items()]
+    emit("construction_time", rows, quiet=True)
+    return rows
+
+
+def bench_index_size(n, d, quick, device, methods=None):
+    """Paper Fig. 8: index memory (graph structure bytes; vectors excluded
+    uniformly — every method stores the same payload)."""
+    vecs, attrs = dataset(n, d)
+    methods = methods or build_methods(vecs, attrs, quick, device)
+    rows = [dict(method=m, index_mb=round(ix.index_bytes / 2**20, 3))
+            for m, ix in methods.items()]
+    emit("index_size", rows, quiet=True)
+    return rows
+
+
+def bench_param_sensitivity(n, d, nq, quick, device):
+    """Paper Fig. 9/10: RNSG sensitivity to ef_attribute / ef_spatial / m."""
+    vecs, attrs = dataset(n, d)
+    qv = dataset(nq, d, seed=91)[0]
+    ranges, _ = mixed_workload(attrs, nq, seed=1)
+    k = 10
+    gt = gt_for(vecs, attrs, qv, ranges, k, device)
+    base = dict(m=16, ef_spatial=16, ef_attribute=24)
+    sweeps = {"ef_attribute": (8, 24, 48), "ef_spatial": (8, 16, 32),
+              "m": (8, 16, 32)}
+    rows = []
+    for pname, vals in sweeps.items():
+        for v in vals:
+            kw = dict(base, **{pname: v})
+            ix = RNSGIndex.build(vecs, attrs, device=device, **kw)
+            (ids, _, st), qps = timed_search(ix, qv, ranges, k, 64)
+            rows.append(dict(param=pname, value=v,
+                             build_seconds=round(ix.g.build_seconds, 2),
+                             recall=round(recall_at_k(ids, gt), 4),
+                             qps=round(qps, 1),
+                             edges=ix.n_edges))
+    emit("param_sensitivity", rows, quiet=True)
+    return rows
+
+
+def bench_vary_k(n, d, nq, quick, device):
+    """Paper Fig. 11: recall/QPS across k."""
+    vecs, attrs = dataset(n, d)
+    ix = RNSGIndex.build(vecs, attrs, m=16, ef_spatial=16, ef_attribute=24,
+                         device=device)
+    qv = dataset(nq, d, seed=91)[0]
+    ranges, _ = mixed_workload(attrs, nq, seed=1)
+    rows = []
+    for k in (1, 10, 20, 50):
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        (ids, _, _), qps = timed_search(ix, qv, ranges, k, max(64, 2 * k))
+        rows.append(dict(k=k, recall=round(recall_at_k(ids, gt), 4),
+                         qps=round(qps, 1)))
+    emit("vary_k", rows, quiet=True)
+    return rows
+
+
+def bench_scalability(d, nq, quick, device):
+    """Paper Fig. 12: build time / size / QPS-at-recall vs dataset size."""
+    rows = []
+    sizes = (2048, 4096, 8192) if quick else (4096, 8192, 16384, 32768)
+    for n in sizes:
+        vecs, attrs = dataset(n, d)
+        ix = RNSGIndex.build(vecs, attrs, m=16, ef_spatial=16,
+                             ef_attribute=24, device=device)
+        qv = dataset(nq, d, seed=91)[0]
+        ranges, _ = mixed_workload(attrs, nq, seed=1)
+        gt = gt_for(vecs, attrs, qv, ranges, 10, device)
+        (ids, _, st), qps = timed_search(ix, qv, ranges, 10, 64)
+        rows.append(dict(n=n, build_seconds=round(ix.g.build_seconds, 2),
+                         index_mb=round(ix.index_bytes / 2**20, 3),
+                         recall=round(recall_at_k(ids, gt), 4),
+                         qps=round(qps, 1),
+                         mean_hops=round(float(st["hops"].mean()), 1)))
+    emit("scalability", rows, quiet=True)
+    return rows
+
+
+def bench_planner(n, d, nq, quick, device):
+    """Adaptive planner vs pure-graph vs brute across selectivity regimes.
+    Narrow workloads must route to the fused range_scan (exact, faster);
+    wide workloads must stay on beam search."""
+    from repro_torch.index.baselines import BruteForceIndex
+    vecs, attrs = dataset(n, d)
+    m = 24 if quick else 48
+    ix = RNSGIndex.build(vecs, attrs, m=m, ef_spatial=m, ef_attribute=2 * m,
+                         device=device)
+    brute = BruteForceIndex(vecs, attrs, device=device)
+    wls = {
+        "narrow_0.4pct": 0.004,
+        "narrow_1pct": 0.01,
+        "medium_10pct": 0.10,
+        "wide_50pct": 0.50,
+    }
+    k, ef = 10, 64
+    rows = []
+    for wname, frac in wls.items():
+        ranges = selectivity_ranges(attrs, nq, frac, seed=17)
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        # planner warms twice: the second warm runs with a calibrated cost
+        # model, so the timed repeats see the steady-state routing
+        (pids, _, pst), pqps = timed_search(ix, qv, ranges, k, ef,
+                                            warmups=2, plan="auto")
+        (gids, _, _), gqps = timed_search(ix, qv, ranges, k, ef, plan="graph")
+        (bids, _, _), bqps = timed_search(brute, qv, ranges, k, ef)
+        for mname, ids, qps, sf in (
+                ("planner", pids, pqps, round(float(pst["scan_frac"]), 3)),
+                ("graph", gids, gqps, ""),
+                ("brute", bids, bqps, "")):
+            rows.append(dict(method=mname, workload=wname, ef=ef,
+                             recall=round(recall_at_k(ids, gt), 4),
+                             qps=round(qps, 1), scan_frac=sf))
+    emit("planner", rows, quiet=True)
+    return rows
+
+
+def _beam_args(ix, ranges, qv):
+    """(vecs, nbrs, queries, lo, hi, entry) of a direct beam dispatch on
+    the index's substrate."""
+    from repro_torch.search import select_entry
+    sub = ix.substrate
+    dev = sub._vecs.device
+    lo, hi = ix.rank_range(ranges)
+    lo_t = torch.as_tensor(lo, device=dev).long()
+    hi_t = torch.as_tensor(hi, device=dev).long()
+    entry = select_entry(sub._rmq, sub._dist_c, lo_t, hi_t, ix.g.n)
+    return (sub._vecs, sub._nbrs, torch.as_tensor(qv, device=dev), lo_t,
+            hi_t, entry)
+
+
+def bench_search_substrate(n, d, nq, quick, device):
+    """Pre/post early-out comparison on the search substrate at
+    narrow/medium/wide selectivities: the beam early-out (pre = legacy
+    condition that burns steps_cap on under-filled pools) must cut
+    narrow-range beam latency with identical results, and the routed
+    substrate paths ride on top."""
+    from repro_torch.core.beam import beam_search_batch
+    from repro_torch.search import remap_ids
+
+    vecs, attrs = dataset(n, d)
+    m = 24 if quick else 48
+    ix = RNSGIndex.build(vecs, attrs, m=m, ef_spatial=m, ef_attribute=2 * m,
+                         device=device)
+    k, ef = 10, 64
+    wls = {"narrow_1pct": 0.01, "medium_10pct": 0.10, "wide_50pct": 0.50}
+    rows = []
+    for wname, frac in wls.items():
+        ranges = selectivity_ranges(attrs, nq, frac, seed=23)
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        args = _beam_args(ix, ranges, qv)
+        for tag, es in (("beam_pre_early_out", False),
+                        ("beam_post_early_out", True)):
+            beam_search_batch(*args, k=k, ef=ef, early_stop=es)[0].cpu()
+            t0 = time.perf_counter()
+            ids, _, _ = beam_search_batch(*args, k=k, ef=ef, early_stop=es)
+            ids = ids.cpu().numpy()
+            dt = time.perf_counter() - t0
+            rec = recall_at_k(remap_ids(ix.g.order.cpu().numpy(), ids), gt)
+            rows.append(dict(method=tag, workload=wname, ef=ef,
+                             recall=round(rec, 4), qps=round(nq / dt, 1)))
+        for plan in ("graph", "auto"):
+            (ids, _, st), qps = timed_search(ix, qv, ranges, k, ef,
+                                             warmups=2, plan=plan)
+            rows.append(dict(method=f"substrate_{plan}", workload=wname,
+                             ef=ef, recall=round(recall_at_k(ids, gt), 4),
+                             qps=round(qps, 1)))
+    emit("search_substrate", rows, quiet=True)
+    pre = next(r for r in rows if r["method"] == "beam_pre_early_out"
+               and r["workload"] == "narrow_1pct")
+    post = next(r for r in rows if r["method"] == "beam_post_early_out"
+                and r["workload"] == "narrow_1pct")
+    emit_bench_json("substrate", {
+        "n": n, "d": d, "nq": nq, "k": k, "ef": ef,
+        "device": _device_name(device),
+        "rows": rows,
+        "narrow_early_out_speedup": round(
+            post["qps"] / max(pre["qps"], 1e-9), 3),
+    })
+    return rows
+
+
+def bench_beam_width(n, d, nq, quick, device):
+    """Batched beam expansion: ``beam_width ∈ {1, 2, 4, 8}`` × narrow (1%) /
+    wide (50%) selectivities, direct ``beam_search_batch`` dispatches (no
+    planner).  ``beam_width=1`` is the single-expansion path every other
+    row is compared against.  The kernel path (``use_kernel``, bw 4) must
+    return the plain path's ids.
+
+    Emits results/bench_torch/beam_width.csv and BENCH_pt_beam.json (QPS /
+    recall / ndist / hops per point, baseline QPS, and the best
+    narrow-range speedup at equal recall)."""
+    from repro_torch.core.beam import beam_search_batch
+    from repro_torch.search import remap_ids
+
+    vecs, attrs = dataset(n, d)
+    m = 24 if quick else 48
+    ix = RNSGIndex.build(vecs, attrs, m=m, ef_spatial=m, ef_attribute=2 * m,
+                         device=device)
+    order = ix.g.order.cpu().numpy()
+    k, ef = 10, 64
+    wls = {"narrow_1pct": 0.01, "wide_50pct": 0.50}
+    widths = (1, 2, 4, 8)
+    rows = []
+    for wname, frac in wls.items():
+        ranges = selectivity_ranges(attrs, nq, frac, seed=17)
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        args = _beam_args(ix, ranges, qv)
+        ids_bw4 = None
+        for bw in widths:
+            beam_search_batch(*args, k=k, ef=ef, beam_width=bw)[0].cpu()
+            best = np.inf
+            for _ in range(3 if quick else 5):
+                t0 = time.perf_counter()
+                ids, _, st = beam_search_batch(*args, k=k, ef=ef,
+                                               beam_width=bw)
+                ids = ids.cpu().numpy()
+                best = min(best, time.perf_counter() - t0)
+            if bw == 4:
+                ids_bw4 = ids
+            rec = recall_at_k(remap_ids(order, ids), gt)
+            rows.append(dict(workload=wname, beam_width=bw, ef=ef,
+                             qps=round(nq / best, 1),
+                             recall=round(rec, 4),
+                             ndist=round(float(st["ndist"].float().mean()), 1),
+                             hops=round(float(st["hops"].float().mean()), 1)))
+        # kernel smoke: the gather/top-k kernel path (the plain versions on
+        # the CPU) must reproduce the plain path exactly
+        nk = min(nq, 50)
+        ids_k = beam_search_batch(
+            *args[:2], *(a[:nk] for a in args[2:]), k=k, ef=ef,
+            beam_width=4, use_kernel=True)[0].cpu().numpy()
+        if not np.array_equal(ids_k, ids_bw4[:nk]):
+            raise AssertionError(
+                f"{wname}: kernel-path beam (beam_width=4) diverged from "
+                f"the plain path")
+    emit("beam_width", rows, quiet=True)
+    nb, best_narrow = _beam_width_best(rows)
+    summary = {
+        "n": n, "d": d, "nq": nq, "k": k, "ef": ef,
+        "device": _device_name(device),
+        "widths": list(widths),
+        "baseline": {w: next(r for r in rows if r["workload"] == w
+                             and r["beam_width"] == 1) for w in wls},
+        "rows": rows,
+        "narrow_speedup_at_equal_recall": round(
+            best_narrow["qps"] / max(nb["qps"], 1e-9), 3) if best_narrow
+        else None,
+        "narrow_best_beam_width": best_narrow["beam_width"] if best_narrow
+        else None,
+    }
+    emit_bench_json("beam", summary)
+    return rows
+
+
+def _beam_width_best(rows, tol: float = 0.001):
+    """(baseline bw=1 narrow row, best narrow row at >=baseline-tol recall
+    or None) — the single eligibility rule behind both BENCH_pt_beam.json
+    and the console summary line."""
+    nb = next(r for r in rows if r["workload"] == "narrow_1pct"
+              and r["beam_width"] == 1)
+    eligible = [r for r in rows if r["workload"] == "narrow_1pct"
+                and r["beam_width"] > 1 and r["recall"] >= nb["recall"] - tol]
+    return nb, max(eligible, key=lambda r: r["qps"], default=None)
+
+
+def bench_quantized(n, d, nq, quick, device):
+    """Quantized distance scoring (int8/bf16 corpus + exact f32 rerank) vs
+    the f32 baseline: recall@k and QPS per precision × narrow (1%) / wide
+    (50%) selectivity × forced scan / beam strategy, plus scored
+    bytes-per-vector.  Every quantized scan row is asserted to return the
+    exact f32 top-k id set (the rerank contract).
+
+    Emits results/bench_torch/quantized.csv and BENCH_pt_quant.json."""
+    from repro_torch.kernels.quantize import quantize_corpus
+
+    vecs, attrs = dataset(n, d)
+    m = 24 if quick else 48
+    ix = RNSGIndex.build(vecs, attrs, m=m, ef_spatial=m, ef_attribute=2 * m,
+                         device=device)
+    precisions = ("f32", "bf16", "int8")
+    for prec in precisions[1:]:
+        ix.install_quantized(prec)
+    bpv = {"f32": float(4 * d)}
+    for prec in precisions[1:]:
+        bpv[prec] = quantize_corpus(ix.substrate._vecs, prec).bytes_per_vector
+    k, ef = 10, 64
+    wls = {"narrow_1pct": 0.01, "wide_50pct": 0.50}
+    rows = []
+    for wname, frac in wls.items():
+        ranges = selectivity_ranges(attrs, nq, frac, seed=17)
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        for strategy in ("scan", "beam"):
+            base_ids, base_rec = None, None
+            for prec in precisions:
+                (ids, dd, _), qps = timed_search(
+                    ix, qv, ranges, k, ef, plan=strategy, precision=prec)
+                ids = np.asarray(ids)
+                rec = recall_at_k(ids, gt)
+                if prec == "f32":
+                    base_ids, base_rec = np.sort(ids, 1), rec
+                elif strategy == "scan":
+                    # scan is exact at any ef: the rerank contract makes the
+                    # quantized id set equal to the f32 one
+                    if not np.array_equal(np.sort(ids, 1), base_ids):
+                        raise AssertionError(
+                            f"{wname}/scan/{prec}: quantized ids diverged "
+                            f"from the f32 oracle (rerank contract broken)")
+                elif rec < base_rec - 0.05:
+                    # a quantized beam may visit another frontier at
+                    # sub-covering ef; the recall envelope must hold
+                    raise AssertionError(
+                        f"{wname}/beam/{prec}: recall {rec:.4f} fell below "
+                        f"the f32 envelope {base_rec:.4f} - 0.05")
+                rows.append(dict(
+                    workload=wname, strategy=strategy, precision=prec,
+                    ef=ef, recall=round(rec, 4),
+                    qps=round(qps, 1), bytes_per_vector=round(bpv[prec], 2)))
+    emit("quantized", rows, quiet=True)
+
+    def row(w, s, p):
+        return next(r for r in rows if r["workload"] == w
+                    and r["strategy"] == s and r["precision"] == p)
+
+    ns_f32 = row("narrow_1pct", "scan", "f32")
+    ns_int8 = row("narrow_1pct", "scan", "int8")
+    speedup = round(ns_int8["qps"] / max(ns_f32["qps"], 1e-9), 3)
+    dev = resolve_device(device)
+    summary = {
+        "n": n, "d": d, "nq": nq, "k": k, "ef": ef,
+        "device": _device_name(device),
+        "precisions": list(precisions),
+        "bytes_per_vector": {p: round(v, 2) for p, v in bpv.items()},
+        "scored_bytes_ratio_f32_over_int8": round(
+            bpv["f32"] / bpv["int8"], 2),
+        "rows": rows,
+        "exact_scan_id_parity_vs_f32": True,  # asserted per scan row above
+        "narrow_scan_int8_speedup_vs_f32": speedup,
+        "narrow_scan_int8_recall": ns_int8["recall"],
+        "speedup_note": (
+            "CPU host: the kernels' plain PyTorch versions ran; QPS ratios "
+            "are CPU numbers, not device numbers" if dev.type == "cpu" else
+            "measured on the card; the lockstep beam's host loop, not the "
+            "scored bytes, sets most of the search time"),
+    }
+    emit_bench_json("quant", summary)
+    return rows
+
+
+def _device_name(device) -> str:
+    dev = resolve_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _time_us(fn, dev, reps: int = 20) -> float:
+    """Median microseconds per call after two warm-up calls: CUDA events
+    on the card, the host clock on the CPU."""
+    for _ in range(2):
+        fn()
+    if dev.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return float(np.median(times))
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) * 1e3)
+    return float(np.median(times))
+
+
+def _bound_us(nbytes: float, flops: float) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e6
+
+
+def bench_kernels(quick, device):
+    """Kernel microbench: ``l2dist`` and ``gather_dist`` through their
+    wrappers (the kernel on the card, the plain version on the CPU) beside
+    their plain versions, with the card's bound (bytes over 3.35 TB/s or
+    flops over 67 TFLOP/s f32, whichever is larger) and, for ``l2dist``,
+    ``torch.cdist`` (its matmul path, TF32 off) as the library yardstick."""
+    from repro_torch.kernels import ops, ref
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False     # IEEE f32 yardstick
+    rng = np.random.default_rng(0)
+    name = _device_name(device)
+    rows = []
+    for (q, nn, dd) in ((128, 1024, 128), (256, 4096, 128)):
+        a = torch.as_tensor(rng.standard_normal((q, dd)), dtype=torch.float32,
+                            device=dev)
+        b = torch.as_tensor(rng.standard_normal((nn, dd)),
+                            dtype=torch.float32, device=dev)
+        flops = 2 * q * nn * dd
+        bound = _bound_us((q * dd + nn * dd + q * nn) * 4, flops)
+        lib = _time_us(lambda: torch.cdist(
+            a, b, compute_mode="use_mm_for_euclid_dist"), dev)
+        for kname, fn in (("l2dist", ops.l2dist), ("l2dist_ref",
+                                                   ref.l2dist_ref)):
+            us = _time_us(lambda: fn(a, b), dev)
+            rows.append(dict(kernel=kname, shape=f"{q}x{nn}x{dd}",
+                             us_per_call=round(us, 2),
+                             gflops_at_wall=round(flops / us / 1e3, 2),
+                             bound_us=round(bound, 3),
+                             library_us=round(lib, 2), device=name))
+    x = torch.as_tensor(rng.standard_normal((4096, 128)), dtype=torch.float32,
+                        device=dev)
+    ids = torch.as_tensor(rng.integers(0, 4096, (1, 64)), dtype=torch.int32,
+                          device=dev)
+    qv = torch.as_tensor(rng.standard_normal((1, 128)), dtype=torch.float32,
+                         device=dev)
+    bound = _bound_us(64 * 128 * 4 + 64 * 4 + 128 * 4 + 64 * 4,
+                      64 * 3 * 128)
+    for kname, fn in (("gather_dist", ops.gather_dist),
+                      ("gather_dist_ref", ref.gather_dist_ref)):
+        us = _time_us(lambda: fn(x, ids, qv), dev)
+        rows.append(dict(kernel=kname, shape="64of4096x128",
+                         us_per_call=round(us, 2),
+                         gflops_at_wall=round(64 * 3 * 128 / us / 1e3, 3),
+                         bound_us=round(bound, 4), library_us="",
+                         device=name))
+    emit("kernels", rows, quiet=True)
+    return rows
+
+
+ALL = ["qps_recall", "construction_time", "index_size", "param_sensitivity",
+       "vary_k", "scalability", "planner", "search_substrate", "beam_width",
+       "quantized", "kernels"]
+#: benches of ``benchmarks/run.py`` whose paths the port has not reached
+PENDING = {"mesh_auto": "the multi-device slice",
+           "async_cache": "the serving-stack slice (search cache)",
+           "streaming": "the streaming slice",
+           "build": "the multi-device slice (sharded build)",
+           "wal": "the streaming slice (write-ahead log)"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--only", default="")
+    ap.add_argument("--n", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    quick = not args.full
+    n = args.n or (4096 if quick else 16384)
+    d = 32 if quick else 64
+    nq = 200 if quick else 1000
+    only = set(args.only.split(",")) if args.only else set(ALL)
+    pending = sorted(only & set(PENDING))
+    unknown = sorted(only - set(ALL) - set(PENDING))
+    if pending or unknown:
+        for b in pending:
+            print(f"run_torch: bench {b!r} is not ported yet (it arrives "
+                  f"with {PENDING[b]}); run it with benchmarks.run",
+                  file=sys.stderr)
+        for b in unknown:
+            print(f"run_torch: unknown bench {b!r}; choose from "
+                  f"{','.join(ALL)}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+
+    print("name,us_per_call,derived")
+    t_all = time.perf_counter()
+    methods = None
+    if only & {"qps_recall", "construction_time", "index_size"}:
+        vecs, attrs = dataset(n, d)     # one build of each method serves all
+        methods = build_methods(vecs, attrs, quick, device)
+    if "qps_recall" in only:
+        rows = bench_qps_recall(n, d, nq, quick, device, methods)
+        best = max((r for r in rows if r["method"] == "rnsg"
+                    and r["workload"] == "mixed"), key=lambda r: r["recall"])
+        print(f"qps_recall,{1e6/best['qps']:.1f},"
+              f"rnsg_mixed_recall={best['recall']}@qps={best['qps']}")
+    if "construction_time" in only:
+        rows = bench_construction_time(n, d, quick, device, methods)
+        rn = next(r for r in rows if r["method"] == "rnsg")
+        sg = next(r for r in rows if r["method"] == "segtree")
+        print(f"construction_time,{rn['build_seconds']*1e6:.0f},"
+              f"rnsg={rn['build_seconds']}s_segtree={sg['build_seconds']}s")
+    if "index_size" in only:
+        rows = bench_index_size(n, d, quick, device, methods)
+        rn = next(r for r in rows if r["method"] == "rnsg")
+        sg = next(r for r in rows if r["method"] == "segtree")
+        print(f"index_size,0,rnsg={rn['index_mb']}MB_segtree={sg['index_mb']}MB"
+              f"_ratio={sg['index_mb']/max(rn['index_mb'],1e-9):.1f}x")
+    if "param_sensitivity" in only:
+        rows = bench_param_sensitivity(n, d, nq, quick, device)
+        print(f"param_sensitivity,0,points={len(rows)}")
+    if "vary_k" in only:
+        rows = bench_vary_k(n, d, nq, quick, device)
+        print(f"vary_k,0,recall@50={rows[-1]['recall']}")
+    if "scalability" in only:
+        rows = bench_scalability(d, nq, quick, device)
+        print(f"scalability,0,qps_{rows[0]['n']}={rows[0]['qps']}"
+              f"_qps_{rows[-1]['n']}={rows[-1]['qps']}")
+    if "planner" in only:
+        rows = bench_planner(n, d, nq, quick, device)
+        print("method,workload,ef,recall,qps,scan_frac")
+        for r in rows:
+            print(f"{r['method']},{r['workload']},{r['ef']},{r['recall']},"
+                  f"{r['qps']},{r['scan_frac']}")
+        np_ = next(r for r in rows if r["method"] == "planner"
+                   and r["workload"] == "narrow_1pct")
+        ng = next(r for r in rows if r["method"] == "graph"
+                  and r["workload"] == "narrow_1pct")
+        wp = next(r for r in rows if r["method"] == "planner"
+                  and r["workload"] == "wide_50pct")
+        print(f"planner,{1e6/np_['qps']:.1f},"
+              f"narrow_speedup_vs_graph={np_['qps']/max(ng['qps'],1e-9):.2f}x"
+              f"_narrow_recall={np_['recall']}vs{ng['recall']}"
+              f"_narrow_scan_frac={np_['scan_frac']}"
+              f"_wide_scan_frac={wp['scan_frac']}")
+    if "search_substrate" in only:
+        rows = bench_search_substrate(n, d, nq, quick, device)
+        pre = next(r for r in rows if r["method"] == "beam_pre_early_out"
+                   and r["workload"] == "narrow_1pct")
+        post = next(r for r in rows if r["method"] == "beam_post_early_out"
+                    and r["workload"] == "narrow_1pct")
+        print(f"search_substrate,{1e6/post['qps']:.1f},"
+              f"narrow_early_out_speedup="
+              f"{post['qps']/max(pre['qps'],1e-9):.2f}x")
+    if "beam_width" in only:
+        rows = bench_beam_width(n, d, nq, quick, device)
+        print("workload,beam_width,ef,qps,recall,ndist,hops")
+        for r in rows:
+            print(f"{r['workload']},{r['beam_width']},{r['ef']},{r['qps']},"
+                  f"{r['recall']},{r['ndist']},{r['hops']}")
+        nb, bb = _beam_width_best(rows)
+        if bb is None:
+            print(f"beam_width,{1e6/nb['qps']:.1f},"
+                  f"no_width_matches_baseline_recall={nb['recall']}")
+        else:
+            print(f"beam_width,{1e6/bb['qps']:.1f},"
+                  f"narrow_speedup_bw{bb['beam_width']}="
+                  f"{bb['qps']/max(nb['qps'],1e-9):.2f}x"
+                  f"_recall={bb['recall']}vs{nb['recall']}"
+                  f"_hops={bb['hops']}vs{nb['hops']}")
+    if "quantized" in only:
+        rows = bench_quantized(n, d, nq, quick, device)
+        print("workload,strategy,precision,ef,recall,qps,bytes_per_vector")
+        for r in rows:
+            print(f"{r['workload']},{r['strategy']},{r['precision']},"
+                  f"{r['ef']},{r['recall']},{r['qps']},"
+                  f"{r['bytes_per_vector']}")
+        f32 = next(r for r in rows if r["workload"] == "narrow_1pct"
+                   and r["strategy"] == "scan" and r["precision"] == "f32")
+        i8 = next(r for r in rows if r["workload"] == "narrow_1pct"
+                  and r["strategy"] == "scan" and r["precision"] == "int8")
+        print(f"quantized,{1e6/i8['qps']:.1f},"
+              f"narrow_scan_int8_speedup={i8['qps']/max(f32['qps'],1e-9):.2f}x"
+              f"_recall={i8['recall']}vs{f32['recall']}"
+              f"_bytes={i8['bytes_per_vector']}vs{f32['bytes_per_vector']}")
+    if "kernels" in only:
+        rows = bench_kernels(quick, device)
+        for r in rows:
+            print(f"kernel_{r['kernel']},{r['us_per_call']},"
+                  f"shape={r['shape']}_bound_us={r['bound_us']}"
+                  f"_library_us={r['library_us']}_device={r['device']}")
+    print(f"# total benchmark wall: {time.perf_counter()-t_all:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

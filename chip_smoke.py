@@ -14,6 +14,11 @@ Phases, each printing its lines:
              f32 kernels, then the int8/bf16 corpora (quantized on the card
              and bit-equal to the CPU's quantization) through range_scan,
              gather_dist and gather_topk, and the f32 rerank gather_rerank;
+   then l2dist against its plain version at the reference test's shapes,
+   the benchmark's and (1024, 262144, 128), in f32 and bf16, and at every
+   shape the bench phase's segment-tree build gives it (f32; timed at its
+   top-level tile, (4096, 100000, 128)), with its bound and
+   ``torch.cdist`` (TF32 off) as the library yardstick;
 4. exact   — n = 4096, d = 128: every strategy × beam width {1, 4} ×
              use_kernel × precision {f32, int8, bf16} returns the
              brute-force ids at ef >= n;
@@ -33,10 +38,29 @@ Phases, each printing its lines:
              ``gather_rerank``.  Then ``plan="graph"`` recall@10 per level at
              ef 64/256/1024 (bw 4, kernels, f32) on the same index;
 6. witness — an n = 100,000 build and graph search on the card, written to
-             ``chiprun_out/witness_n100000.npz`` for ``scale_witness.py``,
-             which holds it against the JAX reference on the CPU;
-7. the ``{"kernels": [...]}`` line;
-8. the last line ``{"ok": true, "device": {...}}``.
+             ``chiprun_out/witness_n100000.npz``, and the bench's segment
+             tree built and searched at n = 8,192 (its upper levels through
+             segment_knn's sliced branch), written to
+             ``chiprun_out/witness_segtree_n8192.npz``, for
+             ``scale_witness.py``, which holds each against the JAX
+             reference on the CPU;
+7. bench   — the paper's benchmark path through ``benchmarks.run_torch``
+             at n = 100,000 × d = 128 (cut from 1M; ``--bench-n``,
+             ``--bench-nq``) with ``build_methods(quick=False)``: RNSG,
+             MRNG in-filter and post-filter, segment tree and brute force
+             built one by one (launches counted around each build: the
+             segment tree's must launch l2dist, and its block KNN on the
+             card must equal a plain computation at block sizes 2^12, 2^16
+             and 2^17), then ``qps_recall`` (1,000
+             queries, all four workloads, k=10, ef 16/32/64/128),
+             ``construction_time``, ``index_size`` and the ``kernels``
+             microbench; the ground truth must equal a float64
+             difference-form top-k up to near-ties, brute force must return
+             the ground truth on every query, and no baseline search may
+             launch a gather kernel.
+             Also prints NNDescent's recall against the exact KNN graph;
+8. the ``{"kernels": [...]}`` line;
+9. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -439,6 +463,92 @@ def phase_parity_quant(x_pad, vecs, n, seed):
     return recs, rr
 
 
+#: l2dist parity shapes (Q, N, d): the reference test's, one query row at
+#: d = 515 (past one 512-wide chunk of the TPU kernel), the benchmark's,
+#: and a 1024-row tile against a 262,144-row block; each in f32 and bf16
+L2_SHAPES = [(1, 1, 1), (4, 7, 3), (128, 128, 128), (128, 256, 64),
+             (100, 300, 130), (257, 129, 515), (33, 1000, 96), (1, 1, 515),
+             (128, 1024, 128), (256, 4096, 128), (1024, 262144, 128)]
+L2_TIMED = {(128, 1024, 128), (256, 4096, 128), (1024, 262144, 128)}
+
+
+def segtree_l2_shapes(n: int, d: int = 128):
+    """Every (Q, N, d) that the segment tree's block KNN
+    (``index.baselines.segment_knn``) hands ``l2dist`` at n rows, in f32:
+    up to KNN_TILE-row blocks one tile against itself, larger blocks each
+    tile of rows against its whole block.  The first is the top level's
+    full tile, the shape that takes the longest."""
+    from repro_torch.index.baselines import KNN_TILE
+    shapes = set()
+    for s in range(1, max(1, int(np.ceil(np.log2(max(n, 2))))) + 1):
+        size = 1 << s
+        if size <= KNN_TILE:
+            shapes.update((min(KNN_TILE, n - lo),) * 2
+                          for lo in range(0, n, KNN_TILE))
+            continue
+        for start in range(0, n, size):
+            end = min(start + size, n)
+            shapes.update((min(KNN_TILE, end - lo), end - start)
+                          for lo in range(start, end, KNN_TILE)
+                          if end - start > 1)
+    top = (min(KNN_TILE, n), n)
+    return [(*top, d)] + sorted((q, m, d) for q, m in shapes - {top})
+
+
+def phase_l2dist(seed, bench_n):
+    """l2dist against its plain version at the reference test's tolerance
+    (max abs error below 1e-3·max(1, d/64) in f32, 0.15·max(1, d/64) in
+    bf16; every value >= 0): L2_SHAPES in f32 and bf16, and every shape
+    the bench phase's segment-tree build gives it (``bench_n`` rows, f32).
+    Timed at the build's top-level tile, the benchmark's shapes and the
+    1024 × 262,144 tile beside its bound, the plain version and, in f32,
+    ``torch.cdist``'s matmul path with TF32 off."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 303)
+    build = segtree_l2_shapes(bench_n)
+    cases = [(s, dt) for s in L2_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(s, torch.float32) for s in build]
+    timed = L2_TIMED | {build[0]}
+    recs = []
+    for (q, n, d), dt in cases:
+        a = torch.as_tensor(rng.standard_normal((q, d)),
+                            device="cuda").to(dt)
+        b = torch.as_tensor(rng.standard_normal((n, d)),
+                            device="cuda").to(dt)
+        got = ops.l2dist(a, b)
+        err = float((got - ref.l2dist_ref(a, b)).abs().max())
+        tol = (1e-3 if dt == torch.float32 else 0.15) * max(1.0, d / 64)
+        if not err < tol or not bool((got >= 0).all()):
+            raise AssertionError(f"l2dist {q}x{n}x{d} {dt}: max abs err "
+                                 f"{err} (tol {tol}) or a negative value")
+        del got
+        rec = dict(shape=f"{q}x{n}x{d}", dtype=ops.DTYPE_NAMES[dt],
+                   max_abs_err=err, tol=tol,
+                   segtree_build=(q, n, d) in build)
+        if (q, n, d) in timed:
+            reps = 10 if q * n > 1 << 24 else 50
+            rec["ms"] = _time_ms(lambda: ops.l2dist(a, b), reps)
+            rec["plain_ms"] = _time_ms(lambda: ref.l2dist_ref(a, b), reps)
+            rec["library_ms"] = (_time_ms(lambda: torch.cdist(
+                a, b, compute_mode="use_mm_for_euclid_dist"), reps)
+                if dt == torch.float32 else None)
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                (q * d + n * d) * a.element_size() + q * n * 4,
+                2.0 * q * n * d)
+            torch.cuda.empty_cache()
+        recs.append(rec)
+        print(f"[l2dist] {rec['shape']} {rec['dtype']} ok err={err:.3g} "
+              f"(tol {tol:.3g})" + (
+                  f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"library_ms={rec['library_ms']} bound_ms="
+                  f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
+                  if "ms" in rec else ""))
+    return recs
+
+
 def _same_sets(ids, gt, d_gt, d_got):
     """Rows whose id sets differ from the ground truth other than by a
     near-tie at the k-th distance (rel 1e-5)."""
@@ -715,12 +825,199 @@ def phase_witness(seed, out: Path, n=100_000, nq=200):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def phase_witness_segtree(out: Path, n=8192, nq=200):
+    """The bench's segment tree (m = 48, ef_spatial = 96) built on the card
+    at n × 128, past one KNN_TILE so its upper levels take segment_knn's
+    sliced branch, and searched (the mixed workload, k = 10, ef = 64);
+    written to ``out/witness_segtree_n<n>.npz`` with its corpus, queries
+    and ranges for ``scale_witness.py``, which builds and searches the JAX
+    reference's segment tree on the same data."""
+    import benchmarks.common_torch as ct
+    from repro_torch.index.baselines import SegmentTreeIndex
+    t0 = time.perf_counter()
+    vecs, attrs = ct.dataset(n, 128)
+    qv = ct.dataset(nq, 128, seed=91)[0]
+    ranges = ct.workloads(attrs, nq)["mixed"]
+    idx = SegmentTreeIndex(vecs, attrs, m=48, ef_spatial=96, device="cuda")
+    ids, dists, st = idx.search(qv, ranges, k=10, ef=64)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"witness_segtree_n{n}.npz"
+    np.savez_compressed(path, kind="segtree", m=48, ef_spatial=96, k=10,
+                        ef=64, vecs=vecs, attrs=attrs, queries=qv,
+                        ranges=ranges, nbrs=idx.nbrs, order=idx.order,
+                        centroid=idx.centroid, dist_c=idx.dist_c,
+                        rmq=idx.rmq, ids=ids, dists=dists,
+                        hops=st["hops"], ndist=st["ndist"])
+    print(f"[witness] segment tree n={n} ({idx.levels} levels) built on the "
+          f"card and searched; wrote {path} "
+          f"({path.stat().st_size / 2**20:.1f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _check_segment_knn(vs, k):
+    """``segment_knn`` on the card (through the l2dist kernel) against a
+    plain computation of the same matrices: each KNN_TILE-row tile against
+    its whole block with ``ref.l2dist_ref`` on the card, self excluded,
+    ``torch.topk``.  At every block size the build's top level and the
+    sizes where segment_knn switches branch (KNN_TILE, 2^16) reach; ids
+    must be equal up to near-ties (``_compare``).  Returns per-size
+    records."""
+    import torch
+    from repro_torch.index.baselines import KNN_TILE, segment_knn
+    from repro_torch.kernels import ref
+    n = vs.shape[0]
+    v = torch.as_tensor(vs, device="cuda")
+    atol = 1e-4 * max(1.0, float((v * v).sum(1).max()))
+    top = 1 << max(1, int(np.ceil(np.log2(max(n, 2)))))
+    recs = []
+    for size in sorted({KNN_TILE, 1 << 16, top}):
+        if size > top:
+            continue
+        kk = min(k, size - 1)
+        got = segment_knn(v, size, kk)
+        gi, gd, wi, wd = [], [], [], []
+        for lo in range(0, n, KNN_TILE):
+            hi = min(lo + KNN_TILE, n)
+            start = lo // size * size
+            end = min(start + size, n)
+            dm = ref.l2dist_ref(v[lo:hi], v[start:end])
+            r = torch.arange(hi - lo, device="cuda")
+            dm[r, r + (lo - start)] = float("inf")
+            dk, ik = torch.topk(dm, min(kk, end - start - 1), dim=1,
+                                largest=False)
+            g = torch.as_tensor(got[lo:hi, :dk.shape[1]], device="cuda")
+            gi.append(g.long() - start)
+            gd.append(dm.gather(1, g.long() - start))
+            wi.append(ik)
+            wd.append(dk)
+        err = _compare(f"segment_knn size={size} k={kk}",
+                       (torch.cat(gi), torch.cat(gd)),
+                       (torch.cat(wi), torch.cat(wd)), atol)
+        recs.append(dict(size=size, k=kk, max_abs_err=err))
+        print(f"[bench] segment_knn size={size} k={kk} on the card equals "
+              f"the plain computation on all {n} rows up to near-ties "
+              f"(largest distance gap at a swapped position {err:.3g})")
+    return recs
+
+
+def _check_ground_truth(vecs, attrs, qv, ranges, gt, name):
+    """The bench's ground truth against a plain float64 one on the card:
+    every point's distance by differences (``torch.cdist`` without the
+    matmul), masked to the range, ``torch.topk``; ids equal up to
+    near-ties (``_compare``, distances of both sides in float64)."""
+    import torch
+    x = torch.as_tensor(vecs, device="cuda", dtype=torch.float64)
+    a = torch.as_tensor(attrs, device="cuda")
+    atol = 1e-4 * max(1.0, float((x * x).sum(1).max()))
+    gi, gd, wi, wd = [], [], [], []
+    k = gt.shape[1]
+    for i in range(0, len(qv), 250):
+        q = torch.as_tensor(qv[i:i + 250], device="cuda", dtype=torch.float64)
+        r = torch.as_tensor(np.asarray(ranges[i:i + 250], np.float32),
+                            device="cuda")
+        dm = torch.cdist(q, x, compute_mode="donot_use_mm_for_euclid_dist")
+        dm = dm * dm
+        ok = (a[None, :] >= r[:, :1]) & (a[None, :] <= r[:, 1:2])
+        dm = torch.where(ok, dm, float("inf"))
+        dk, ik = torch.topk(dm, k, dim=1, largest=False)
+        wi.append(torch.where(torch.isfinite(dk), ik, -1))
+        wd.append(dk)
+        g = torch.as_tensor(gt[i:i + 250], device="cuda").long()
+        gi.append(g)
+        gd.append(torch.where(g >= 0, dm.gather(1, g.clamp_min(0)),
+                              float("inf")))
+    return _compare(f"ground truth {name}", (torch.cat(gi), torch.cat(gd)),
+                    (torch.cat(wi), torch.cat(wd)), atol)
+
+
+def phase_bench(n, nq, out: Path):
+    """The benchmark path (``benchmarks.run_torch``) on the card at n × 128:
+    per-method builds with their launch counts, the QPS/recall sweep, build
+    time, index size and the kernel microbench; tables to
+    ``out/bench_torch``.  Returns the records for the summary."""
+    import torch
+    import benchmarks.common_torch as ct
+    import benchmarks.run_torch as rt
+    from repro_torch.index.knn import exact_knn, knn_recall, nndescent
+    from repro_torch.kernels import ops
+    ct.RESULTS = out / "bench_torch"
+    dev = torch.device("cuda")
+    d = 128
+    t0 = time.perf_counter()
+    vecs, attrs = ct.dataset(n, d)
+    methods, build_launches = {}, {}
+    for name, make in ct.method_builders(quick=False, device=dev).items():
+        torch.cuda.synchronize()
+        ops.reset_launches()           # this build's launches, and only its
+        methods[name] = make(vecs, attrs)
+        torch.cuda.synchronize()
+        build_launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"[bench] build {name}: {ct.build_seconds(methods[name]):.2f} s "
+              f"index_mb={methods[name].index_bytes / 2**20:.3f} "
+              f"launches={build_launches[name]}")
+    if not build_launches["segtree"].get("l2dist.f32"):
+        raise AssertionError(f"segtree build launched no l2dist: "
+                             f"{build_launches['segtree']}")
+    seg = _check_segment_knn(methods["segtree"].vecs, 96)
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    qps = rt.bench_qps_recall(n, d, nq, False, dev, methods)
+    search_s = time.perf_counter() - t1
+    search_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if search_launches:
+        raise AssertionError(f"the benchmark's searches (plan='graph', "
+                             f"plain beams) launched {search_launches}")
+    for r in qps:
+        print(f"[bench] qps_recall {r['method']} {r['workload']} ef={r['ef']}"
+              f" recall={r['recall']} qps={r['qps']}")
+    builds = rt.bench_construction_time(n, d, False, dev, methods)
+    sizes = rt.bench_index_size(n, d, False, dev, methods)
+    qv = ct.dataset(nq, d, seed=91)[0]
+    gt_err = {}
+    for wname, ranges in ct.workloads(attrs, nq).items():
+        gt = ct.gt_for(vecs, attrs, qv, ranges, 10, dev)
+        gt_err[wname] = _check_ground_truth(vecs, attrs, qv, ranges, gt,
+                                            wname)
+        ids = methods["brute"].search(qv, ranges, k=10)[0]
+        bad = np.flatnonzero((ids != gt).any(1))
+        if len(bad):
+            raise AssertionError(f"brute force {wname}: rows {bad[:10]} "
+                                 f"differ from the ground truth")
+    print(f"[bench] the ground truth equals a float64 difference-form "
+          f"top-k up to near-ties, and brute force equals the ground truth, "
+          f"on all {4 * nq} queries (max abs dist err {gt_err})")
+    kern = rt.bench_kernels(False, dev)
+    for r in kern:
+        print(f"[bench] kernels {r}")
+    del methods
+    torch.cuda.empty_cache()
+    v = torch.as_tensor(vecs, device=dev)
+    t1 = time.perf_counter()
+    approx = nndescent(v, 32)[1].cpu().numpy()
+    nnd_s = time.perf_counter() - t1
+    exact = exact_knn(v, 32)[1].cpu().numpy()
+    rec = knn_recall(approx, exact)
+    print(f"[bench] knn_recall(nndescent(vecs, 32), exact_knn(vecs, 32)) = "
+          f"{rec:.4f} at n={n} (nndescent {nnd_s:.2f} s)")
+    wall = time.perf_counter() - t0
+    print(f"[bench] done n={n} d={d} nq={nq}: searches {search_s:.1f} s, "
+          f"phase {wall:.1f} s")
+    return dict(n=n, d=d, nq=nq, build_launches=build_launches,
+                segment_knn=seg, ground_truth_err=gt_err,
+                qps_recall=qps, construction_time=builds, index_size=sizes,
+                kernels=kern, nndescent_recall=rec, nndescent_s=nnd_s,
+                search_s=search_s, wall_s=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="full-size corpus rows (d is always 128)")
     ap.add_argument("--nq", type=int, default=1000)
+    ap.add_argument("--bench-n", type=int, default=100_000,
+                    help="the bench phase's corpus rows (d = 128)")
+    ap.add_argument("--bench-nq", type=int, default=1000)
     args = ap.parse_args()
 
     import torch
@@ -745,11 +1042,14 @@ def main() -> int:
     qrecs, rr = phase_parity_quant(x_pad, vecs, n, args.seed)
     del vecs, x_pad
     torch.cuda.empty_cache()
+    l2 = phase_l2dist(args.seed, args.bench_n)
 
     phase_exact(args.seed)
     full = phase_full(n, args.nq, 64, args.seed, ops)
     out = ROOT / "chiprun_out"
     phase_witness(args.seed + 3, out)
+    phase_witness_segtree(out)
+    bench = phase_bench(args.bench_n, args.bench_nq, out)
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
     la = full["launches"]
@@ -823,9 +1123,25 @@ def main() -> int:
              other_shapes=[dict(r, shape=f"q=64 m={r['m']} k={r['k']} d=128")
                            for r in rr if r is not rr_main]),
     ]
+    top = segtree_l2_shapes(args.bench_n)[0]
+    l2_main = next(r for r in l2 if r["shape"] == "x".join(map(str, top))
+                   and r["dtype"] == "f32")
+    kern.append(dict(
+        name="l2dist", route="cuda", source="src/repro_torch/csrc/l2dist.cu",
+        replaces="src/repro/kernels/l2dist.py:41",
+        launches=bench["build_launches"]["segtree"]["l2dist.f32"],
+        launches_path="bench_segtree_build",
+        max_abs_err=max(r["max_abs_err"] for r in l2 if r["dtype"] == "f32"),
+        ms=l2_main["ms"], plain_ms=l2_main["plain_ms"],
+        bound_ms=l2_main["bound_ms"], bound_by=l2_main["bound_by"],
+        library_ms=l2_main["library_ms"], parity_ok=True,
+        shape=f"q={top[0]} n={top[1]} d={top[2]} f32 (the segment-tree "
+              f"build's top-level tile)",
+        other_shapes=[dict(r, shape=f"{r['shape']} {r['dtype']}")
+                      for r in l2 if "ms" in r and r is not l2_main]))
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
-                   gather_rerank=rr, full=full,
+                   gather_rerank=rr, l2dist=l2, full=full, bench=bench,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

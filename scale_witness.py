@@ -29,6 +29,17 @@ the reference's ``repro.data.ann`` and, on the CPU:
 Prints one line per check and a JSON summary last; exits non-zero when a
 check fails its bar (KNN, order/dist_c/rmq and nbrs exact up to near-ties,
 search ids, hops and ndist equal on >= 99 % of queries).
+
+Given ``chiprun_out/witness_segtree_n8192.npz`` (the benchmark's segment
+tree, built and searched on the card past one l2dist tile of rows), it
+builds the reference's ``SegmentTreeIndex`` on the stored corpus and
+compares ``order``, ``dist_c``, ``rmq`` (bit-equal expected) and ``nbrs``
+(rows equal on >= 99.9 % of (level, row) pairs: the block KNN is the
+expansion form in float32, summed in another order on each side, so near
+ties may flip a neighbour and the prune after it), then runs the
+reference's search over the card's arrays (ids, hops and ndist equal on
+>= 99 % of queries) and over its own (recall@10 of both against the
+reference's ground truth, printed).
 """
 from __future__ import annotations
 
@@ -85,7 +96,68 @@ def _prune_margin(v64, sq, x, side, half):
     return best
 
 
+def main_segtree(z: dict) -> int:
+    from repro.data.ann import ground_truth, recall_at_k
+    from repro.index.baselines import SegmentTreeIndex
+    import jax.numpy as jnp
+
+    vecs, attrs, qv, ranges = z["vecs"], z["attrs"], z["queries"], z["ranges"]
+    k, ef = int(z["k"]), int(z["ef"])
+    n, nq = len(vecs), len(qv)
+    t0 = time.perf_counter()
+    own = SegmentTreeIndex(vecs, attrs, m=int(z["m"]),
+                           ef_spatial=int(z["ef_spatial"]))
+    exact = {f: bool(np.array_equal(getattr(own, f), z[f]))
+             for f in ("order", "dist_c", "rmq")}
+    cen = bool(np.allclose(own.centroid, z["centroid"], rtol=1e-5,
+                           atol=1e-6))
+    rows_eq = (own.nbrs == z["nbrs"]).all(-1)
+    summary = dict(kind="segtree", n=n, nq=nq, levels=int(own.levels))
+    summary["build"] = dict(exact, centroid_allclose=cen,
+                            nbrs_rows_equal=float(rows_eq.mean()),
+                            nbrs_rows_differing=int((~rows_eq).sum()),
+                            differing_by_level=(~rows_eq).sum(1).tolist())
+    ok = all(exact.values()) and cen and rows_eq.mean() >= 0.999
+    print(f"[build] reference SegmentTreeIndex n={n} ({own.levels} levels): "
+          f"exact {exact}, centroid allclose {cen}, nbrs rows equal "
+          f"{rows_eq.mean() * 100:.3f}% ({int((~rows_eq).sum())} of "
+          f"{rows_eq.size} differ; by level "
+          f"{summary['build']['differing_by_level']}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    card = SegmentTreeIndex.__new__(SegmentTreeIndex)
+    card.vecs, card.attrs = own.vecs, own.attrs
+    card.order, card.levels, card.m = z["order"], own.levels, own.m
+    card.nbrs, card.rmq, card.dist_c = z["nbrs"], z["rmq"], z["dist_c"]
+    card._v, card._nb = jnp.asarray(card.vecs), jnp.asarray(card.nbrs)
+    card._rmq, card._dc = jnp.asarray(card.rmq), jnp.asarray(card.dist_c)
+    ids, _, st = card.search(qv, ranges, k=k, ef=ef)
+    same = ((ids == z["ids"]).all(1) & (st["hops"] == z["hops"])
+            & (st["ndist"] == z["ndist"]))
+    mine = own.search(qv, ranges, k=k, ef=ef)[0]
+    gt, _ = ground_truth(vecs, attrs, qv, ranges, k)
+    summary["search"] = dict(equal=float(same.mean()),
+                             differing=np.flatnonzero(~same)[:20].tolist(),
+                             recall_card=recall_at_k(z["ids"], gt),
+                             recall_reference_graph=recall_at_k(mine, gt))
+    ok &= same.mean() >= 0.99
+    print(f"[search] ef={ef}: the reference over the card's segment tree "
+          f"equals the card's ids/hops/ndist on {same.mean() * 100:.2f}% of "
+          f"{nq} queries (differing {np.flatnonzero(~same)[:20]}); "
+          f"recall@{k} card {summary['search']['recall_card']:.4f}, "
+          f"reference over its own tree "
+          f"{summary['search']['recall_reference_graph']:.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary))
+    return 0 if ok else 1
+
+
 def main(path: str) -> int:
+    z = dict(np.load(path))
+    if str(z.get("kind", "")) == "segtree":
+        return main_segtree(z)
     from repro.core.construction import (RNSGGraph, _gap_sorted_side,
                                          build_rnsg)
     from repro.core.rfann import RNSGIndex
@@ -93,7 +165,6 @@ def main(path: str) -> int:
                                 mixed_workload, recall_at_k)
     from repro.index.knn import exact_knn
 
-    z = dict(np.load(path))
     seed, n, nq = int(z["seed"]), int(z["n"]), int(z["nq"])
     m, ef_attr = int(z["m"]), int(z["ef_attribute"])
     allv = make_vectors(n + nq, 128, seed=seed)

@@ -155,14 +155,15 @@ def _row_dists(x, ids, q, scale=None):
     return torch.sum(diff * diff, dim=-1)
 
 
-def _go(cand_d, expanded, steps, steps_cap: int):
-    """Per-lane loop condition of the reference's ``while_loop`` (with
-    its default ``early_stop``)."""
+def _go(cand_d, expanded, steps, steps_cap: int, early_stop: bool = True):
+    """Per-lane loop condition of the reference's ``while_loop``;
+    ``early_stop`` also ends a lane with no finite unexpanded candidate."""
     best = torch.where(~expanded, cand_d, INF).amin(1)
     fin = torch.isfinite(cand_d)
     worst = torch.where(fin, cand_d, -INF).amax(1)
     worst = torch.where((~fin).any(1), INF, worst)
-    return (best <= worst) & (steps < steps_cap) & torch.isfinite(best)
+    go = (best <= worst) & (steps < steps_cap)
+    return go & torch.isfinite(best) if early_stop else go
 
 
 def _init_pool(x, scale, qv, lo, hi, entry, ef: int):
@@ -191,7 +192,8 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
                       qv: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       entry: torch.Tensor, *, k: int = 10, ef: int = 64,
                       use_kernel: bool = False, beam_width: int = 1,
-                      quant=None, live: torch.Tensor | None = None):
+                      quant=None, live: torch.Tensor | None = None,
+                      early_stop: bool = True):
     """vecs:(n,d) f32; nbrs:(n,m) i32; qv:(Q,d); lo/hi:(Q,) rank ids;
     entry:(Q,) or (Q,E) entry ranks.  Returns (ids:(Q,k) i32 rank ids (-1
     pad), dists:(Q,k) f32, stats {"hops", "ndist"} (Q,) i32), all on the
@@ -203,8 +205,10 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
     (``rerank_pool``), so whenever the pool saw every true neighbor the
     returned ids are the f32 ones.
 
-    A lane stops after 8·ef+64 hops, or as soon as no finite unexpanded
-    candidate remains (the reference's ``early_stop``).  ``beam_width=B>1``
+    A lane stops after 8·ef+64 hops, or (``early_stop``, the default) as
+    soon as no finite unexpanded candidate remains; without it a pool that
+    never fills re-expands its best node until the cap, with the same
+    answers and more hops (the reference's legacy condition).  ``beam_width=B>1``
     expands the best B candidates per iteration (clamped to ef); ``hops``
     then counts iterations.  ``live`` ((n,) bool) is the tombstone mask:
     dead nodes are traversed but filtered out of the final pool."""
@@ -226,11 +230,12 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
     if beam_width > 1:
         cand_d, cand_ids, steps, ndist = _beam_batched(
             *score, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
-            use_kernel=use_kernel, beam_width=beam_width)
+            use_kernel=use_kernel, beam_width=beam_width,
+            early_stop=early_stop)
     else:
         cand_d, cand_ids, steps, ndist = _beam_single(
             *score, nbrs, qv, lo, hi, entry, ef=ef, steps_cap=steps_cap,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, early_stop=early_stop)
     ids, dists = _pool_finish(cand_d, cand_ids, live, k, quant)
     if quant is not None:
         ids, dists = rerank_pool(vecs, ids, qv, k, use_kernel)
@@ -239,7 +244,7 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
 
 
 def _beam_single(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                 steps_cap: int, use_kernel: bool):
+                 steps_cap: int, use_kernel: bool, early_stop: bool):
     """Single-node expansion; x/scale: the corpus the traversal scores."""
     n = nbrs.shape[0]
     nq = qv.shape[0]
@@ -253,7 +258,7 @@ def _beam_single(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
     rows = torch.arange(nq, device=dev)
 
     while True:
-        act = _go(cand_d, expanded, steps, steps_cap)
+        act = _go(cand_d, expanded, steps, steps_cap, early_stop)
         if not bool(act.any()):
             break
         bi = torch.where(~expanded, cand_d, INF).argmin(1)   # first minimum
@@ -286,7 +291,8 @@ def _beam_single(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
 
 
 def _beam_batched(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                  steps_cap: int, use_kernel: bool, beam_width: int):
+                  steps_cap: int, use_kernel: bool, beam_width: int,
+                  early_stop: bool):
     """Batched expansion; x/scale: the corpus the traversal scores."""
     n, m = nbrs.shape
     nq = qv.shape[0]
@@ -330,7 +336,7 @@ def _beam_batched(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
     before = ar_f[None, :] < ar_f[:, None]           # before[i, j]: j < i
 
     while True:
-        act = _go(cand_d, expanded, steps, steps_cap)
+        act = _go(cand_d, expanded, steps, steps_cap, early_stop)
         if not bool(act.any()):
             break
         # best B unexpanded: the pool is sorted, so the first B selectable

@@ -1,11 +1,11 @@
 """Algorithm 2 — RNSG construction.
 
-Pipeline: (1) exact KNN graph (spatial proximity, on the device); (2)
-±ef_attribute rank window (attribute proximity, Alg. 2 line 7 —
-index-based on the attribute-sorted order); (3) per-side gap-sorted
-candidate arrays (host numpy, copied from the reference); (4) the vectorized
-Algorithm-1 pruning engine (on the device).  Ids are attribute ranks
-throughout.
+Pipeline: (1) KNN graph (spatial proximity, on the device: exact, or
+NNDescent); (2) ±ef_attribute rank window (attribute proximity, Alg. 2
+line 7 — index-based on the attribute-sorted order); (3) per-side
+gap-sorted candidate arrays (host numpy, copied from the reference); (4)
+the vectorized Algorithm-1 pruning engine (on the device); optionally (5)
+NSG-style reverse edges.  Ids are attribute ranks throughout.
 
 ``RNSGGraph`` holds its arrays as torch tensors on one device and saves
 them in the reference's npz layout, so an index written by either package
@@ -26,7 +26,7 @@ from repro_torch.core.entry import build_rmq, centroid_dists
 from repro_torch.core.pruning import prune_all
 from repro_torch.device import resolve_device
 from repro_torch.index.io import fsync_dir
-from repro_torch.index.knn import exact_knn
+from repro_torch.index.knn import exact_knn, nndescent
 
 #: npz field name -> dtype, in the reference's save order
 ARRAY_FIELDS = {"vecs": np.float32, "attrs": np.float32, "nbrs": np.int32,
@@ -153,21 +153,19 @@ def _gap_sorted_side(n: int, knn_ids: np.ndarray, ef_attribute: int,
 
 def build_rnsg(vectors: np.ndarray, attrs: np.ndarray, *, m: int = 32,
                ef_spatial: int = 32, ef_attribute: int = 48,
-               knn_method: str = "exact",
-               knn_ids: Optional[np.ndarray] = None,
-               reverse_edges: bool = False, device=None) -> RNSGGraph:
+               knn_method: str = "exact", knn_iters: int = 6,
+               seed: int = 0, knn_ids: Optional[np.ndarray] = None,
+               reverse_edges: bool = False,
+               reverse_cap: Optional[int] = None, device=None) -> RNSGGraph:
     """Algorithm 2 on ``device`` (default the card), with the reference's
-    parameters; ``knn_ids`` ((n, k) rank ids, -1 pad) skips the KNN step.
-    ``knn_method="nndescent"`` and ``reverse_edges=True`` raise
-    ``NotImplementedError`` until the baselines slice ports them."""
+    parameters; ``knn_ids`` ((n, k) rank ids, -1 pad) skips the KNN step,
+    ``knn_method`` other than ``"exact"`` runs ``nndescent`` (``knn_iters``
+    rounds from ``seed``).  ``reverse_edges=True`` adds NSG-style reverse
+    edges up to ``reverse_cap`` (default 1.25·m) slots per node, a knob
+    beyond the paper that makes heredity approximate once the cap
+    saturates."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    if reverse_edges:
-        raise NotImplementedError("reverse_edges arrives with the port of "
-                                  "index/baselines.py")
-    if knn_method != "exact":
-        raise NotImplementedError(f"knn_method={knn_method!r}: only 'exact' "
-                                  f"is ported")
     vectors = np.asarray(vectors, np.float32)
     attrs = np.asarray(attrs, np.float32)
     n = len(attrs)
@@ -181,11 +179,18 @@ def build_rnsg(vectors: np.ndarray, attrs: np.ndarray, *, m: int = 32,
         if k_eff < 1:
             knn_ids = np.full((n, 0), -1, np.int32)
         else:
-            _, ids = exact_knn(v_dev, k_eff)
+            if knn_method == "exact":
+                _, ids = exact_knn(v_dev, k_eff)
+            else:
+                _, ids = nndescent(v_dev, k_eff, iters=knn_iters, seed=seed)
             knn_ids = ids.cpu().numpy().astype(np.int32)
     cand_l = _gap_sorted_side(n, knn_ids, ef_attribute, "l")
     cand_r = _gap_sorted_side(n, knn_ids, ef_attribute, "r")
     nbrs = prune_all(v_dev, cand_l, cand_r, m)
+    if reverse_edges:
+        from repro_torch.index.baselines import add_reverse_edges
+        nbrs = add_reverse_edges(nbrs, reverse_cap or int(m * 1.25),
+                                 device=dev)
 
     c, dist_c = centroid_dists(vs)
     rmq = build_rmq(dist_c)

@@ -4,7 +4,8 @@ The entry node for a rank interval [L, R] is argmin over the interval of
 δ(v, centroid), answered in O(1) by a range-argmin sparse table.  The
 centroid, its distances and the table are built on the host in numpy,
 copied from the reference (so ``dist_c`` and ``rmq`` are bit-equal to it);
-the query runs in torch on the device."""
+the query runs in torch on the device, or on the host for one interval
+(``rmq_query_np``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -35,6 +36,17 @@ def build_rmq(dist_c: np.ndarray) -> np.ndarray:
         table[j, n - 2 * span + 1:] = table[j - 1, n - 2 * span + 1:]
         j += 1
     return table
+
+
+def rmq_query_np(table: np.ndarray, dist_c: np.ndarray, lo, hi):
+    """Host range-argmin for [lo, hi] (lo <= hi): an int for ints, an
+    array for arrays of intervals."""
+    ln = np.asarray(hi) - lo + 1
+    j = np.floor(np.log2(ln)).astype(np.int64)
+    a = table[j, lo]
+    b = table[j, hi - (np.int64(1) << j) + 1]
+    out = np.where(dist_c[a] <= dist_c[b], a, b)
+    return int(out) if out.ndim == 0 else out
 
 
 def rmq_query(table: torch.Tensor, dist_c: torch.Tensor, lo: torch.Tensor,

@@ -68,14 +68,21 @@ def mixed_workload(attrs: np.ndarray, nq: int, seed: int = 0,
     return out, np.asarray(lvl[:nq])
 
 
+def _on(x, dev) -> torch.Tensor:
+    """An array or tensor as float32 on ``dev`` (no copy if it is)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
 def ground_truth(vectors: np.ndarray, attrs: np.ndarray, queries: np.ndarray,
                  ranges: np.ndarray, k: int, device=None):
     """Exact range-filtered KNN (the pre-filter/linear-scan baseline), on
-    ``device`` (default the card).  Returns numpy (ids (Q,k), dists (Q,k)),
+    ``device`` (default the card); ``vectors`` and ``attrs`` may be tensors
+    already there.  Returns numpy (ids (Q,k), dists (Q,k)),
     ids -1 / dists +inf where a range holds fewer than k points."""
     dev = resolve_device(device)
-    v = torch.as_tensor(np.asarray(vectors, np.float32), device=dev)
-    a = torch.as_tensor(np.asarray(attrs, np.float32), device=dev)
+    v, a = _on(vectors, dev), _on(attrs, dev)
     ids_out, d_out = [], []
     block = 256                   # queries per (block, n) distance matrix
     for i in range(0, len(queries), block):

@@ -1,11 +1,12 @@
-"""KNN substrate: exact blocked brute force (a float32 matmul on the device).
+"""KNN substrate: exact blocked brute force (a float32 matmul on the
+device) and NNDescent.
 
-Distances are squared L2 throughout.  NNDescent (``knn_method="nndescent"``
-in the reference) arrives with the baselines slice."""
+Distances are squared L2 throughout."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 INF = float("inf")
@@ -63,3 +64,69 @@ def exact_knn(vecs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     d, i = torch.cat(ds)[:n], torch.cat(ids)[:n]
     oob = i >= n                     # pad-row ids: only reachable when k >= n
     return torch.where(oob, INF, d), torch.where(oob, -1, i)
+
+
+# ----------------------------------------------------------------------
+def _nndescent_dists(vecs: torch.Tensor, vn: torch.Tensor, ids: torch.Tensor,
+                     block: int) -> torch.Tensor:
+    """(n, c) candidate ids -> (n, c) squared L2 of each row to its
+    candidates, per ``block`` rows: the reference's expansion
+    (‖x_c‖² − 2 q·x_c) + ‖q‖², clamped at 0."""
+    out = torch.empty(ids.shape, dtype=torch.float32, device=vecs.device)
+    for lo in range(0, vecs.shape[0], block):
+        rows = ids[lo:lo + block]                             # (b, c)
+        q = vecs[lo:lo + block]                               # (b, d)
+        dots = torch.einsum("bd,bcd->bc", q, vecs[rows])
+        d = vn[rows] - 2.0 * dots + torch.sum(q * q, -1, keepdim=True)
+        out[lo:lo + block] = d.clamp_min_(0.0)
+    return out
+
+
+def _nndescent_merge(ids_a, d_a, ids_b, d_b, k: int):
+    """Union of two candidate lists per row, duplicates and self masked to
+    +inf, then the k nearest.  Both sorts are stable, which is the order of
+    the reference's ``argsort`` and of ``lax.top_k`` (ties toward the lower
+    position)."""
+    n = ids_a.shape[0]
+    ids = torch.cat([ids_a, ids_b], dim=1)
+    d = torch.cat([d_a, d_b], dim=1)
+    o = torch.argsort(ids, dim=1, stable=True)
+    ids_s, d_s = ids.gather(1, o), d.gather(1, o)
+    dup = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
+    self_m = ids_s == torch.arange(n, device=ids.device)[:, None]
+    d_s = torch.where(dup | self_m, INF, d_s)
+    o = torch.argsort(d_s, dim=1, stable=True)[:, :k]
+    return ids_s.gather(1, o), d_s.gather(1, o)
+
+
+def nndescent(vecs: torch.Tensor, k: int, iters: int = 6, seed: int = 0,
+              block: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate KNN graph via fixed-iteration vectorized NNDescent, on
+    the tensor's device: random initial lists drawn as the reference draws
+    them (``np.random.default_rng(seed)``), then ``iters`` rounds of
+    merging each row's neighbours-of-neighbours.  n is padded to a block
+    multiple with rows at 1e9.  Returns (dists (n,k) f32, ids (n,k)
+    int64)."""
+    n, dim = vecs.shape
+    pad = (-n) % block
+    v = vecs.float()
+    if pad:
+        v = torch.cat([v, torch.full((pad, dim), 1e9, dtype=torch.float32,
+                                     device=v.device)])
+    rng = np.random.default_rng(seed)
+    init = torch.as_tensor(rng.integers(0, n, (n + pad, k)).astype(np.int64),
+                           device=v.device)
+    vn = torch.sum(v * v, dim=-1)
+    d0 = _nndescent_dists(v, vn, init, block)
+    ids, d = _nndescent_merge(init, d0, init, d0, k)
+    for _ in range(iters):
+        non = ids[ids].reshape(n + pad, -1)                   # (n, k*k)
+        ids, d = _nndescent_merge(ids, d, non,
+                                  _nndescent_dists(v, vn, non, block), k)
+    return d[:n], ids[:n]
+
+
+def knn_recall(approx_ids: np.ndarray, exact_ids: np.ndarray) -> float:
+    hits = sum(len(set(a) & set(e)) for a, e in zip(approx_ids, exact_ids))
+    return hits / exact_ids.size

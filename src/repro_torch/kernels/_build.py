@@ -51,10 +51,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream
         "gather_rerank_launch": [_P] * 6 + [_I] * 9 + [_P],
     },
+    "l2dist": {
+        # q, x, dtype, out, Q, N, d, stream
+        "l2dist_launch": [_P, _P, _I, _P] + [_I] * 3 + [_P],
+    },
 }
 
-#: corpus element types the scoring kernels take, by their code in
-#: ``csrc/corpus.cuh``
+#: element types the kernels take, by their code in ``csrc/corpus.cuh``
+#: (``l2dist`` takes float32 and bfloat16)
 DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

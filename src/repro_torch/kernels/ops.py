@@ -14,7 +14,8 @@ per-dimension ``scale``, or bf16; ``repro_torch.kernels.quantize``).
 
 ``LAUNCHES`` counts the wrapper calls that launched a CUDA kernel (a CPU
 call counts nothing): the scoring kernels per corpus dtype, under
-``"<kernel>.<f32|int8|bf16>"``, and ``"gather_rerank"``, so a run can show
+``"<kernel>.<f32|int8|bf16>"``, ``"gather_rerank"``, and ``l2dist`` per
+input dtype (``"l2dist.f32"``, ``"l2dist.bf16"``), so a run can show
 that its path went through the kernels, and through which variant: zero
 the counts with ``reset_launches`` just before the run and read them just
 after."""
@@ -32,7 +33,8 @@ DTYPE_NAMES = {torch.float32: "f32", torch.int8: "int8",
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     [f"{kernel}.{dt}"
      for kernel in ("range_scan", "gather_dist", "gather_topk")
-     for dt in DTYPE_NAMES.values()] + ["gather_rerank"], 0)
+     for dt in DTYPE_NAMES.values()] + ["gather_rerank", "l2dist.f32",
+                                        "l2dist.bf16"], 0)
 
 
 def reset_launches() -> None:
@@ -47,6 +49,17 @@ def _count(name: str, x: torch.Tensor | None = None) -> None:
 def _tile(m: int, cap: int = 128) -> int:
     """The reference's lane-row size for an id vector of length m."""
     return int(min(cap, 1 << max(int(m) - 1, 0).bit_length() if m > 1 else 1))
+
+
+def l2dist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q,d) × (N,d) -> (Q,N) squared L2 in the expansion form, f32 sums,
+    clamped at 0; q and x f32 or bf16 (both of one dtype on the card)."""
+    if q.device.type == "cpu":
+        return ref.l2dist_ref(q, x)
+    from repro_torch.kernels.l2dist import l2dist_cuda
+    out = l2dist_cuda(q, x)
+    _count("l2dist", q)
+    return out
 
 
 def gather_dist(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,

@@ -37,6 +37,16 @@ def _smallest(d: torch.Tensor, ids: torch.Tensor, k: int):
     return ik.to(torch.int32), dk
 
 
+def l2dist_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q,d) × (N,d) -> (Q,N) squared L2, f32 accumulation: the expansion
+    form ‖q‖² − 2 q·x + ‖x‖², clamped at 0 (IEEE f32: TF32 is off
+    package-wide)."""
+    qf, xf = q.float(), x.float()
+    qn = torch.sum(qf * qf, dim=-1, keepdim=True)
+    xn = torch.sum(xf * xf, dim=-1)
+    return torch.clamp_min(qn - 2.0 * (qf @ xf.T) + xn[None, :], 0.0)
+
+
 def dequantized_rows(x: torch.Tensor, idx: torch.Tensor,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
     """f32 rows ``x[idx]`` (any index shape), times ``scale`` when given."""

@@ -1,0 +1,133 @@
+"""The port's benchmark driver (``benchmarks/run_torch.py``) at a tiny size
+on the CPU: each ported bench writes the reference driver's columns (the
+kernel table's TPU roofline becomes the card's bound, beside the library
+yardstick and the device), exact methods score recall 1.0, output stays
+under ``results/bench_torch/``, and a bench the port has not reached
+refuses to run."""
+import csv
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import benchmarks.common_torch as ct
+import benchmarks.run_torch as rt
+from benchmarks.common import recall_at_k as ref_recall_at_k
+
+ROOT = Path(__file__).resolve().parent.parent
+N, D, NQ = 512, 8, 20
+
+#: the reference driver's columns, from the committed tables where there are
+#: any (results/bench/*.csv), else from the dict keys of benchmarks/run.py
+REF_COLUMNS = {
+    "qps_recall": ["method", "workload", "ef", "recall", "qps"],
+    "construction_time": ["method", "build_seconds"],
+    "index_size": ["method", "index_mb"],
+    "param_sensitivity": ["param", "value", "build_seconds", "recall", "qps",
+                          "edges"],
+    "vary_k": ["k", "recall", "qps"],
+    "scalability": ["n", "build_seconds", "index_mb", "recall", "qps",
+                    "mean_hops"],
+    "kernels": ["kernel", "shape", "us_per_call", "gflops_at_wall",
+                "tpu_roofline_us"],
+}
+for _name in ("planner", "search_substrate", "beam_width", "quantized"):
+    with open(ROOT / "results" / "bench" / f"{_name}.csv") as _f:
+        REF_COLUMNS[_name] = next(csv.reader(_f))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small torch ops, and with
+    the test workers sharing the cores, more threads only add waits."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def results(tmp_path, monkeypatch):
+    monkeypatch.setattr(ct, "RESULTS", tmp_path / "bench_torch")
+    return tmp_path / "bench_torch"
+
+
+@pytest.fixture(scope="module")
+def methods():
+    vecs, attrs = ct.dataset(N, D)
+    return ct.build_methods(vecs, attrs, True, "cpu")
+
+
+def _run(name, methods):
+    if name in ("qps_recall",):
+        return rt.bench_qps_recall(N, D, NQ, True, "cpu", methods)
+    if name in ("construction_time", "index_size"):
+        return getattr(rt, f"bench_{name}")(N, D, True, "cpu", methods)
+    if name == "scalability":
+        return rt.bench_scalability(D, NQ, True, "cpu")
+    if name == "kernels":
+        return rt.bench_kernels(True, "cpu")
+    return getattr(rt, f"bench_{name}")(N, D, NQ, True, "cpu")
+
+
+@pytest.mark.parametrize("name", rt.ALL)
+def test_bench_writes_the_reference_columns(name, methods, results):
+    rows = _run(name, methods)
+    want = REF_COLUMNS[name]
+    if name == "kernels":
+        want = [c if c != "tpu_roofline_us" else "bound_us" for c in want]
+        want += ["library_us", "device"]
+    assert rows and list(rows[0]) == want
+    with open(results / f"{name}.csv") as f:
+        table = list(csv.DictReader(f))
+    assert len(table) == len(rows) and list(table[0]) == want
+    if name == "qps_recall":
+        brute = [r for r in rows if r["method"] == "brute"]
+        assert len(brute) == 4 and all(r["recall"] == 1.0 for r in brute)
+        assert {r["method"] for r in rows} == set(methods)
+    if name == "planner":
+        assert all(r["recall"] == 1.0 for r in rows if r["method"] == "brute")
+    if name == "kernels":
+        assert {r["kernel"] for r in rows} == {
+            "l2dist", "l2dist_ref", "gather_dist", "gather_dist_ref"}
+        assert all(r["device"] == "cpu" and r["bound_us"] > 0 for r in rows)
+    if name in ("search_substrate", "beam_width", "quantized"):
+        stem = {"search_substrate": "substrate", "beam_width": "beam",
+                "quantized": "quant"}[name]
+        assert (results / f"BENCH_pt_{stem}.json").exists()
+
+
+def test_recall_at_k_equals_the_reference_on_its_edge_cases():
+    gt = np.asarray([[1, 2, 3], [4, -1, -1], [-1, -1, -1], [7, 8, 9]])
+    gd = np.asarray([[0.1, 0.2, 0.3], [0.5, np.inf, np.inf],
+                     [np.inf] * 3, [1.0, 2.0, 3.0]], np.float32)
+    found = np.asarray([[3, 2, 11], [4, 5, 6], [1, 2, 3], [7, 8, 10]])
+    fd = np.asarray([[0.3, 0.2, 0.3], [0.5, 0.6, 0.7], [0.1] * 3,
+                     [1.0, 2.0, 3.000001]], np.float32)
+    for kw in ({}, dict(gt_dists=gd, found_dists=fd),
+               dict(gt_dists=gd, found_dists=fd, eps=1e-9)):
+        assert ct.recall_at_k(found, gt, **kw) == ref_recall_at_k(found, gt,
+                                                                  **kw)
+    assert ct.recall_at_k(found, gt) == pytest.approx(5 / 7)
+    assert ct.recall_at_k(found, gt, gt_dists=gd,
+                          found_dists=fd) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("only", ["mesh_auto", "async_cache", "streaming",
+                                  "build", "wal", "kernels,wal", "bogus"])
+def test_unported_or_unknown_bench_exits_non_zero(only, results, capsys):
+    assert rt.main(["--only", only, "--device", "cpu"]) != 0
+    out = capsys.readouterr()
+    assert "name,us_per_call" not in out.out          # no empty table
+    assert ("not ported yet" in out.err) or ("unknown bench" in out.err)
+    assert not results.exists()
+
+
+def test_main_writes_only_under_results(results, capsys):
+    assert rt.main(["--only", "kernels", "--device", "cpu"]) == 0
+    assert sorted(p.name for p in results.iterdir()) == ["kernels.csv"]
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "name,us_per_call,derived"
+    assert any(line.startswith("kernel_l2dist,") for line in out)
+    assert ct.RESULTS == results and results.parent.name != "bench"

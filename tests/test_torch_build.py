@@ -1,5 +1,6 @@
 """The port's build against the reference's: data generators, exact KNN,
-prune + pack, entry structures, and the npz format across both packages."""
+NNDescent, prune + pack, reverse edges, entry structures, and the npz
+format across both packages."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,15 +9,18 @@ import torch
 from repro.core.construction import RNSGGraph as JGraph
 from repro.core.construction import build_rnsg as jbuild
 from repro.core.entry import rmq_query_jax
+from repro.core.entry import rmq_query_np as jrmq_np
 from repro.data import ann as jann
 from repro.index.knn import exact_knn as jknn
+from repro.index.knn import knn_recall as jknn_recall
+from repro.index.knn import nndescent as jnndescent
 from repro_torch.core.construction import (RNSGGraph, build_rnsg,
                                            graph_from_arrays)
-from repro_torch.core.entry import rmq_query
+from repro_torch.core.entry import rmq_query, rmq_query_np
 from repro_torch.core.pruning import prune_all
 from repro_torch.core.rfann import RNSGIndex
 from repro_torch.data import ann as tann
-from repro_torch.index.knn import exact_knn
+from repro_torch.index.knn import exact_knn, knn_recall, nndescent
 
 FIELDS = ("vecs", "attrs", "nbrs", "order", "centroid", "dist_c", "rmq")
 
@@ -131,6 +135,10 @@ def test_rmq_query_matches_reference():
                                     jnp.asarray(lo), jnp.asarray(hi)))
     got = rmq_query(g.rmq, g.dist_c, torch.as_tensor(lo), torch.as_tensor(hi))
     assert np.array_equal(got.numpy(), want)
+    table, dc = g.rmq.numpy(), g.dist_c.numpy()
+    host = [rmq_query_np(table, dc, int(a), int(b)) for a, b in zip(lo, hi)]
+    assert host == [jrmq_np(table, dc, int(a), int(b)) for a, b in zip(lo, hi)]
+    assert np.array_equal(rmq_query_np(table, dc, lo, hi), host)
 
 
 def test_npz_cross_loads_both_ways(tmp_path):
@@ -168,13 +176,59 @@ def test_graph_from_arrays_round_trips():
         assert np.array_equal(again.arrays()[f], arrays[f]), f
 
 
-def test_unported_build_options_raise():
-    v = jann.make_vectors(40, 4, seed=0)
-    a = jann.make_attrs(40, seed=0)
-    with pytest.raises(NotImplementedError):
-        build_rnsg(v, a, knn_method="nndescent", device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_rnsg(v, a, reverse_edges=True, device="cpu")
+def test_nndescent_matches_reference():
+    """Same seed, same initial lists: ids equal on >= 99 % of rows (the
+    einsum sums in another order than XLA, so a near-tie may flip and
+    change later neighbours-of-neighbours), and recall against the exact
+    graph within 0.005 of the reference's."""
+    v = jann.make_vectors(2048, 16, seed=5)
+    _, ji = jnndescent(v, 16)
+    td, ti = nndescent(torch.as_tensor(v), 16)
+    assert ti.shape == (2048, 16) and td.shape == (2048, 16)
+    ti = ti.numpy()
+    assert (ti == ji).all(1).mean() >= 0.99
+    _, exact = jknn(v, 16)
+    assert abs(knn_recall(ti, exact) - jknn_recall(ji, exact)) <= 0.005
+    assert knn_recall(ti, exact) == jknn_recall(ti, exact)
+
+
+def test_nndescent_equal_on_an_integer_corpus():
+    """Integer coordinates make every f32 sum exact, so the two packages
+    see the same distances; ties (many, at integer distances) resolve the
+    same way: ids and distances equal on every row."""
+    v = np.random.default_rng(1).integers(-8, 9, (1500, 12))
+    v = v.astype(np.float32)
+    jd, ji = jnndescent(v, 10, iters=4, seed=3)
+    td, ti = nndescent(torch.as_tensor(v), 10, iters=4, seed=3)
+    assert np.array_equal(ti.numpy(), ji)
+    assert np.array_equal(td.numpy(), jd)
+
+
+def test_build_with_nndescent_matches_reference():
+    v = np.random.default_rng(2).integers(-8, 9, (600, 8)).astype(np.float32)
+    a = jann.make_attrs(600, seed=2)
+    kw = dict(m=8, ef_spatial=8, ef_attribute=12, knn_method="nndescent",
+              knn_iters=3, seed=4)
+    ref = jbuild(v, a, **kw)
+    got = build_rnsg(v, a, device="cpu", **kw)
+    assert np.array_equal(got.arrays()["nbrs"], np.asarray(ref.nbrs))
+    assert got.meta == ref.meta
+
+
+@pytest.mark.parametrize("cap", [None, 9, 40])
+def test_reverse_edges_bit_equal_with_shared_knn(cap):
+    """``reverse_edges=True`` adds the reference's reverse edges: the
+    default cap 1.25·m, one that saturates, one that does not."""
+    v = jann.make_vectors(500, 12, seed=6)
+    a = jann.make_attrs(500, seed=6)
+    order = np.argsort(a, kind="stable")
+    _, knn = jknn(v[order], 12)
+    kw = dict(m=8, ef_spatial=12, ef_attribute=16, knn_ids=knn,
+              reverse_edges=True, reverse_cap=cap)
+    want = np.asarray(jbuild(v, a, **kw).nbrs)
+    got = build_rnsg(v, a, device="cpu", **kw).arrays()["nbrs"]
+    assert got.shape == want.shape == (500, cap or 10)
+    assert np.array_equal(got, want)
 
 
 def test_ground_truth_matches_reference():

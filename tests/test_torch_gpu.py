@@ -1,6 +1,7 @@
 """On the card: each hand-written kernel against its plain PyTorch version
-(f32, int8 and bf16 corpora; the f32 rerank at every M and k), the quantized
-corpus against the CPU's bit for bit, and the slices end to end.  Marked
+(f32, int8 and bf16 corpora; the f32 rerank at every M and k; l2dist), the
+quantized corpus against the CPU's bit for bit, and the slices end to end
+(the benchmark's baselines included).  Marked
 ``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
 present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
 import numpy as np
@@ -183,4 +184,50 @@ def test_slice_end_to_end_on_card(cuda):
                     for r in range(len(qv)):
                         assert set(ids[r][ids[r] >= 0]) == \
                             set(gt[r][gt[r] >= 0])
-    assert all(c > 0 for c in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(c > 0 for name, c in ops.LAUNCHES.items()
+               if not name.startswith("l2dist")), ops.LAUNCHES
+    assert not any(ops.LAUNCHES[f"l2dist.{dt}"] for dt in ("f32", "bf16"))
+
+
+@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (4, 7, 3), (100, 300, 130),
+                                   (257, 129, 515), (1, 1, 515),
+                                   (33, 1000, 96), (256, 4096, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2dist_kernel_matches_plain(cuda, q, n, d, dtype):
+    """The reference test's tolerance, 1e-3·max(1, d/64) (f32) or
+    0.15·max(1, d/64) (bf16), as max abs error; never negative; one
+    counted launch."""
+    rng = np.random.default_rng(q * n + d)
+    a = torch.as_tensor(rng.standard_normal((q, d)), device=cuda).to(dtype)
+    b = torch.as_tensor(rng.standard_normal((n, d)), device=cuda).to(dtype)
+    ops.reset_launches()
+    got = ops.l2dist(a, b)
+    assert ops.LAUNCHES[f"l2dist.{ops.DTYPE_NAMES[dtype]}"] == 1
+    want = ref.l2dist_ref(a, b)
+    tol = (1e-3 if dtype == torch.float32 else 0.15) * max(1.0, d / 64)
+    assert got.shape == (q, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) < tol
+    assert bool((got >= 0).all())
+
+
+def test_baselines_end_to_end_on_card(cuda):
+    """The benchmark's five methods built on the card: the segment tree's
+    block KNN launches l2dist, no baseline launches a gather kernel, and
+    brute force returns the ground truth."""
+    from benchmarks.common_torch import build_methods, gt_for, workloads
+    from repro_torch.data.ann import make_attrs, make_vectors
+    n, d = 3000, 32
+    v, a = make_vectors(n, d, seed=0), make_attrs(n, seed=0)
+    qv = make_vectors(40, d, seed=91)
+    ops.reset_launches()
+    methods = build_methods(v, a, True, cuda)
+    assert ops.LAUNCHES["l2dist.f32"] > 0
+    for ranges in workloads(a, 40).values():
+        gt = gt_for(v, a, qv, ranges, 10, cuda)
+        for name, ix in methods.items():
+            ids = ix.search(qv, ranges, k=10, ef=32)[0]
+            assert ids.shape == (40, 10)
+            if name == "brute":
+                assert np.array_equal(ids, gt)
+    assert not any(c for name, c in ops.LAUNCHES.items()
+                   if name.startswith("gather"))

@@ -13,6 +13,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
+#: the port's scripts and benchmark driver, which stand alone like it
+SCRIPTS = [ROOT / "benchmarks" / "run_torch.py",
+           ROOT / "benchmarks" / "common_torch.py",
+           ROOT / "chip_smoke.py", ROOT / "ab_qps.py"]
 
 
 def _imported_modules(py: Path):
@@ -24,11 +28,13 @@ def _imported_modules(py: Path):
 
 
 def test_no_module_imports_jax_or_repro():
+    """Nor ``benchmarks.common``, which imports ``repro``."""
     offenders = []
-    for py in sorted(PORT.rglob("*.py")):
+    for py in sorted(PORT.rglob("*.py")) + SCRIPTS:
         for mod in _imported_modules(py):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "repro") or mod in (
+                    "benchmarks.common", "benchmarks.run"):
                 offenders.append(f"{py.relative_to(ROOT)}: {mod}")
     assert not offenders, offenders
 
@@ -41,16 +47,19 @@ def test_port_modules_all_present():
             "search/resolve.py", "planner/bucketing.py", "planner/cost.py",
             "planner/planner.py", "obs/trace.py", "search/substrate.py",
             "core/rfann.py", "kernels/quantize.py", "csrc/range_scan.cu",
-            "csrc/gather_dist.cu", "csrc/corpus.cuh", "csrc/topk_key.cuh"]
+            "csrc/gather_dist.cu", "csrc/corpus.cuh", "csrc/topk_key.cuh",
+            "kernels/l2dist.py", "csrc/l2dist.cu", "index/baselines.py"]
     assert [p for p in want if not (PORT / p).exists()] == []
 
 
 def test_imports_with_jax_blocked_and_no_cuda(tmp_path):
-    """Every module imports in a fresh process where ``import jax`` fails,
-    no CUDA device is visible and no ``nvcc`` is on the PATH."""
+    """Every module, and the benchmark driver, imports in a fresh process
+    where ``import jax`` fails, no CUDA device is visible and no ``nvcc`` is
+    on the PATH."""
     mods = sorted(".".join(("repro_torch",) + p.relative_to(PORT)
                            .with_suffix("").parts).replace(".__init__", "")
                   for p in PORT.rglob("*.py"))
+    mods += ["benchmarks.common_torch", "benchmarks.run_torch"]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -60,7 +69,7 @@ def test_imports_with_jax_blocked_and_no_cuda(tmp_path):
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k in sys.modules if sys.modules[k])\n"
             "print('ok', len(sys.modules))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}",
                CUDA_VISIBLE_DEVICES="", PATH=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

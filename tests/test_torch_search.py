@@ -163,6 +163,31 @@ def test_multi_entry_beam_matches_reference(pair):
             assert np.array_equal(ts[s].numpy(), np.asarray(js[s]))
 
 
+@pytest.mark.parametrize("bw", [1, 4])
+def test_beam_without_early_stop_matches_reference(pair, bw):
+    """``early_stop=False`` (the legacy condition the substrate bench
+    times): a pool that never fills runs to the 8·ef+64 cap, with the
+    reference's ids, hops and ndist."""
+    ref, port, qv, _, _ = pair
+    lo = np.asarray([0, 10, 40, 100, 7, 200], np.int32)
+    hi = np.asarray([255, 13, 90, 100, 6, 230], np.int32)   # narrow, empty
+    g = ref.g
+    entry = np.asarray(jselect(jnp.asarray(g.rmq), jnp.asarray(g.dist_c),
+                               jnp.asarray(lo), jnp.asarray(hi), N))
+    ji, _, js = jbeam(jnp.asarray(g.vecs), jnp.asarray(g.nbrs),
+                      jnp.asarray(qv[:6]), jnp.asarray(lo), jnp.asarray(hi),
+                      jnp.asarray(entry), k=5, ef=16, beam_width=bw,
+                      early_stop=False)
+    ti, _, ts = beam_search_batch(
+        port.g.vecs, port.g.nbrs, torch.as_tensor(qv[:6]),
+        torch.as_tensor(lo), torch.as_tensor(hi), torch.as_tensor(entry),
+        k=5, ef=16, beam_width=bw, early_stop=False)
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    for s in ("hops", "ndist"):
+        assert np.array_equal(ts[s].numpy(), np.asarray(js[s])), s
+    assert (ts["hops"].numpy() == 8 * 16 + 64).any()
+
+
 def test_select_entry_and_merge_topk_match_reference(pair):
     ref, port, _, _, _ = pair
     rng = np.random.default_rng(5)
