@@ -31,12 +31,21 @@ Phases, each printing its lines:
              precision; recall@10 per level, QPS, scan share; scan-routed
              queries must be exact (all of them at f32, >= 99% quantized)
              and each kernel path must equal its plain path on >= 99% of
-             queries.  Launches are counted per path: zeroed just before
-             each ``search`` call and read just after it; each kernel path
-             must launch its kernels (in its precision's variant), each
-             plain path no gather kernel, each quantized path
-             ``gather_rerank``.  Then ``plan="graph"`` recall@10 per level at
-             ef 64/256/1024 (bw 4, kernels, f32) on the same index;
+             queries, and each f32 kernel path must equal its plain path's
+             hops and ndist on >= 99% of graph-routed queries (each
+             difference printed with its top-10 distances).  Launches are
+             counted per path: zeroed just before each ``search`` call and
+             read just after it; each kernel path must run its hop loop in
+             its precision's fused beam (``beam_single`` at bw 1,
+             ``beam_batched`` at bw 4), one launch per graph-routed
+             partition, no path may launch a per-hop ``gather_dist`` or
+             ``gather_topk``, and each quantized path must launch
+             ``gather_rerank``.  Then the fused beams on the card against
+             the lockstep loop on the same batch (64 graph-routed queries,
+             ef=64, every precision, bw 1 and 4), timed with CUDA events
+             beside their byte bound; then ``plan="graph"`` recall@10 and
+             QPS per level at ef 64/256/1024 (bw 4, kernels, f32) on the
+             same index;
 6. witness — an n = 100,000 build and graph search on the card, written to
              ``chiprun_out/witness_n100000.npz``, and the bench's segment
              tree built and searched at n = 8,192 (its upper levels through
@@ -617,28 +626,33 @@ def _path_name(prec, path):
     return path if prec == "f32" else f"{prec}_{path}"
 
 
-def _check_launches(launches):
+def _check_launches(launches, dispatches):
     """Per-path launch counts: every path's scan partitions go through its
-    precision's range_scan variant; each kernel path launches its gather
-    kernel in that variant and no other, each plain path no gather kernel;
-    every quantized path launches gather_rerank, no f32 path does."""
+    precision's range_scan variant; each kernel path runs the hop loop of
+    each graph-routed partition in one launch of its precision's fused beam
+    (beam_single at bw 1, beam_batched at bw 4), each plain path in none;
+    no path launches a per-hop gather kernel; every quantized path launches
+    gather_rerank, no f32 path does."""
+    beams = ("beam_single", "beam_batched")
     gathers = ("gather_dist", "gather_topk")
     for prec in PRECISIONS:
         for path, bw, uk in PATHS:
             name = _path_name(prec, path)
             got = launches[name]
-            need = [f"range_scan.{prec}"]
-            if uk:
-                need.append(f"{gathers[bw > 1]}.{prec}")
+            beam = f"{beams[bw > 1]}.{prec}"
+            need = [f"range_scan.{prec}"] + ([beam] if uk else [])
             if prec != "f32":
                 need.append("gather_rerank")
-            zero = [f"{g}.{p}" for g in gathers + ("range_scan",)
-                    for p in PRECISIONS
-                    if p != prec or (g in gathers and not uk)] + \
+            zero = [f"{g}.{p}" for g in gathers + beams + ("range_scan",)
+                    for p in PRECISIONS if f"{g}.{p}" not in need] + \
                 (["gather_rerank"] if prec == "f32" else [])
             if not all(got[k] > 0 for k in need) or any(got[k] for k in zero):
                 raise AssertionError(f"{name}: launches {got} need {need} "
                                      f"and none of {zero}")
+            if uk and got[beam] != dispatches[name]:
+                raise AssertionError(
+                    f"{name}: {got[beam]} {beam} launches for "
+                    f"{dispatches[name]} graph-routed partitions")
 
 
 def phase_full(n, nq, batch, seed, ops):
@@ -647,6 +661,7 @@ def phase_full(n, nq, batch, seed, ops):
     from repro_torch.data.ann import (ground_truth, make_attrs, make_vectors,
                                       mixed_workload, recall_at_k)
     from repro_torch.planner import SCAN
+    import repro_torch.search.substrate as sub
     d = 128
     t0 = time.perf_counter()
     allv = make_vectors(n + nq, d, seed=seed)
@@ -686,6 +701,15 @@ def phase_full(n, nq, batch, seed, ops):
     strat = {c[0]: [] for c in configs}
     secs = {c[0]: 0.0 for c in configs}
     launches = {c[0]: dict.fromkeys(ops.LAUNCHES, 0) for c in configs}
+    dispatches = dict.fromkeys(out, 0)       # graph-routed partitions
+    beam_calls = []
+    inner = sub.beam_search_batch
+
+    def counted(*a, **kw):
+        beam_calls.append(1)
+        return inner(*a, **kw)
+
+    sub.beam_search_batch = counted
     planner = idx.planner
     for lo in range(0, nq, batch):
         q_b, r_b = qv[lo:lo + batch], ranges[lo:lo + batch]
@@ -695,6 +719,7 @@ def phase_full(n, nq, batch, seed, ops):
             # every path plans this batch from the same calibration state,
             # so a kernel path and its plain path route alike
             planner.cost.load_state_dict(json.loads(start))
+            beam_calls.clear()
             ops.reset_launches()          # this path's run, and only it
             t1 = time.perf_counter()
             res = idx.search(q_b, r_b, k=10, ef=64, plan="auto",
@@ -702,20 +727,25 @@ def phase_full(n, nq, batch, seed, ops):
             secs[name] += time.perf_counter() - t1
             for kern, c in ops.LAUNCHES.items():
                 launches[name][kern] += c
+            dispatches[name] += len(beam_calls)
             out[name].append(res)
             strat[name].append(res.stats["strategy"])
             if follow is None:
                 follow = json.dumps(planner.cost.state_dict())
         planner.cost.load_state_dict(json.loads(follow))
+    sub.beam_search_batch = inner
     nonzero = {c: {k: v for k, v in cnt.items() if v}
                for c, cnt in launches.items()}
     print(f"[full] launches per path over {nq} queries: "
-          f"{json.dumps(nonzero)}")
-    _check_launches(launches)
+          f"{json.dumps(nonzero)}; graph-routed partitions per path: "
+          f"{json.dumps(dispatches)}")
+    _check_launches(launches, dispatches)
 
     summary = {}
     ids = {c: np.concatenate([r.ids for r in out[c]]) for c in out}
     dists = {c: np.concatenate([r.dists for r in out[c]]) for c in out}
+    stats = {c: {s: np.concatenate([r.stats[s] for r in out[c]])
+                 for s in ("hops", "ndist")} for c in out}
     for name, prec, _, _ in configs:
         s = np.concatenate(strat[name])
         scan = s == SCAN
@@ -752,6 +782,31 @@ def phase_full(n, nq, batch, seed, ops):
                 raise AssertionError(f"{kern} differs from {plain} on "
                                      f"{len(diff)} queries")
             summary[kern]["equal_to_plain"] = float(same.mean())
+    for kern, plain in (("bw1_kernel", "bw1_plain"),
+                        ("bw4_kernel", "bw4_plain")):
+        graph = np.concatenate(strat[kern]) != SCAN
+        if not np.array_equal(graph, np.concatenate(strat[plain]) != SCAN):
+            raise AssertionError(f"{kern} and {plain} routed apart")
+        eq = ((stats[kern]["hops"] == stats[plain]["hops"])
+              & (stats[kern]["ndist"] == stats[plain]["ndist"]))[graph]
+        rows = np.flatnonzero(graph)[~eq]
+        print(f"[full] {kern} vs {plain}: hops and ndist equal on "
+              f"{eq.mean() * 100:.2f}% of {int(graph.sum())} graph-routed "
+              f"queries")
+        for r in rows[:20]:
+            gap = np.abs(dists[kern][r] - dists[plain][r])
+            fin = np.isfinite(gap)
+            print(f"[full]   query {r}: hops {stats[kern]['hops'][r]} / "
+                  f"{stats[plain]['hops'][r]}, ndist "
+                  f"{stats[kern]['ndist'][r]} / {stats[plain]['ndist'][r]}, "
+                  f"top-10 ids equal {bool((ids[kern][r] == ids[plain][r]).all())}, "
+                  f"max top-10 distance gap "
+                  f"{float(gap[fin].max()) if fin.any() else 0.0:.3g}")
+        if eq.mean() < 0.99:
+            raise AssertionError(f"{kern}: hops/ndist differ from {plain} on "
+                                 f"{len(rows)} graph-routed queries")
+        summary[kern]["hops_ndist_equal_to_plain"] = float(eq.mean())
+    beam = phase_beam(idx, qv[:batch], ranges[:batch])
     for prec in PRECISIONS[1:]:
         for path, _, _ in PATHS:
             name = _path_name(prec, path)
@@ -779,8 +834,83 @@ def phase_full(n, nq, batch, seed, ops):
               f"recall@10={sweep[ef]['recall']:.4f} recall_by_level=" +
               ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
     return dict(build=st, install_quantized_s=install, configs=summary,
-                launches=launches, graph_ef_sweep=sweep, batch=batch, nq=nq,
-                n=n)
+                launches=launches, dispatches=dispatches,
+                graph_ef_sweep=sweep, beam=beam, batch=batch, nq=nq, n=n)
+
+
+def phase_beam(idx, qv, ranges):
+    """The fused beams (``ops.beam_single`` at bw 1, ``ops.beam_batched`` at
+    bw 4) on one batch of the full phase as the substrate dispatches it
+    (ef=64, its entries and rank bounds), at every precision, against the
+    lockstep loop on the same card tensors: hops and ndist equal on >= 99%
+    of lanes and the top-10 of those lanes equal up to near-ties.  Times
+    both with CUDA events (the wrapper's host set-up included) beside the
+    byte bound of the work this batch needs: each scored row read once
+    (sum of ndist rows of d elements), each expanded node's neighbour-id
+    row once (sum of hops x B x m x 4 bytes), the queries once; its
+    operations (3 d flops per scored row) are far below.  Returns
+    {kernel: {precision: record}}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.search import resolve
+    sub = idx.substrate
+    lo, hi = idx.rank_range(ranges)
+    dev = sub._vecs.device
+    lo_t = torch.as_tensor(lo, device=dev).long()
+    hi_t = torch.as_tensor(hi, device=dev).long()
+    entry = resolve.select_entry(
+        sub._rmq, sub._dist_c, lo_t.clamp(0, sub.n - 1),
+        hi_t.clamp(0, sub.n - 1), sub.n)
+    q = torch.as_tensor(qv, device=dev)
+    ef = 64
+    kw = dict(ef=ef, steps_cap=8 * ef + 64, early_stop=True)
+    n, m = sub._nbrs.shape
+    atol = 1e-4 * max(1.0, float((sub._vecs * sub._vecs).sum(1).max()))
+    recs = {"beam_single": {}, "beam_batched": {}}
+    for prec in PRECISIONS:
+        quant = sub._quant_ops(prec)
+        x, scale = (sub._vecs, None) if quant is None else quant
+        args = (x, scale, sub._nbrs, q, lo_t, hi_t, entry)
+        for name, bw in (("beam_single", 1), ("beam_batched", 4)):
+            extra = {"beam_width": bw} if bw > 1 else {}
+            run_k = lambda: getattr(ops, name)(*args, **kw, **extra)
+            plain = getattr(ref, f"{name}_ref")
+            run_p = lambda: plain(*args, **kw, **extra)
+            got, want = run_k(), run_p()
+            same = ((got[2] == want[2]) & (got[3] == want[3])).cpu().numpy()
+            if same.mean() < 0.99:
+                raise AssertionError(f"{name} {prec}: hops/ndist differ from "
+                                     f"the lockstep loop on lanes "
+                                     f"{np.flatnonzero(~same)[:10].tolist()}")
+            rows = torch.as_tensor(np.flatnonzero(same), device=dev)
+            top = lambda t: (torch.where(torch.isfinite(t[0][rows][:, :10]),
+                                         t[1][rows][:, :10], -1),
+                             t[0][rows][:, :10])
+            err = _compare(f"{name} {prec}", top(got), top(want), atol)
+            hops = got[2].cpu().numpy()
+            ndist = got[3].cpu().numpy()
+            B = bw
+            nbytes = (int(ndist.sum()) * x.shape[1] * x.element_size()
+                      + int(hops.sum()) * B * m * 4 + q.numel() * 4
+                      + (0 if scale is None else scale.numel() * 4))
+            bound, by = _bound(nbytes, float(ndist.sum()) * 3 * x.shape[1])
+            ms = _time_ms(run_k, 20)
+            pms = _time_ms(run_p, 3)
+            recs[name][prec] = dict(
+                q=len(qv), ef=ef, bw=bw, ms=ms, plain_ms=pms, bound_ms=bound,
+                bound_by=by, max_abs_err=err, max_lane_hops=int(hops.max()),
+                per_hop_ms=ms / max(int(hops.max()), 1),
+                hops_sum=int(hops.sum()), ndist_sum=int(ndist.sum()),
+                lanes_equal=float(same.mean()),
+                shape=f"q={len(qv)} ef={ef} bw={bw} n={n} d={x.shape[1]} "
+                      f"m={m} {prec}")
+            print(f"[beam] {name} {prec} q={len(qv)} ef={ef} bw={bw}: equal "
+                  f"to the lockstep loop on {same.mean() * 100:.1f}% of lanes"
+                  f" err={err:.3g} ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"bound_ms={bound:.5f} ({by}) longest lane "
+                  f"{int(hops.max())} hops, {ms / max(int(hops.max()), 1):.5f}"
+                  f" ms per hop")
+    return recs
 
 
 def phase_witness(seed, out: Path, n=100_000, nq=200):
@@ -1089,6 +1219,9 @@ def main() -> int:
              replaces="src/repro/kernels/gather_dist.py:79",
              launches=la["bw1_kernel"]["gather_dist.f32"],
              launches_path="bw1_kernel",
+             on_path="the search path scores in beam_single's inner step "
+                     "(csrc/beam.cu); this kernel stays as the counterpart "
+                     "of repro.kernels.ops.gather_dist",
              max_abs_err=gd["max_abs_err"], ms=gd["ms"],
              plain_ms=gd["plain_ms"], bound_ms=gd["bound_ms"],
              bound_by=gd["bound_by"], library_ms=None, parity_ok=True,
@@ -1100,6 +1233,10 @@ def main() -> int:
              replaces="src/repro/kernels/gather_dist.py:179",
              launches=la["bw4_kernel"]["gather_topk.f32"],
              launches_path="bw4_kernel",
+             on_path="the search path ranks its fresh keys in "
+                     "beam_batched's inner step (csrc/beam.cu); this kernel "
+                     "stays as the counterpart of "
+                     "repro.kernels.ops.gather_topk",
              max_abs_err=gk["max_abs_err"], ms=gk["ms"],
              plain_ms=gk["plain_ms"], bound_ms=gk["bound_ms"],
              bound_by=gk["bound_by"], library_ms=None, parity_ok=True,
@@ -1123,6 +1260,24 @@ def main() -> int:
              other_shapes=[dict(r, shape=f"q=64 m={r['m']} k={r['k']} d=128")
                            for r in rr if r is not rr_main]),
     ]
+    for name, path, line in (("beam_single", "bw1_kernel", 79),
+                             ("beam_batched", "bw4_kernel", 179)):
+        rec = full["beam"][name]
+        main_b = rec["f32"]
+        kern.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/beam.cu",
+            replaces=f"src/repro/kernels/gather_dist.py:{line}",
+            launches=la[path][f"{name}.f32"], launches_path=path,
+            graph_partitions=full["dispatches"][path],
+            max_abs_err=max(r["max_abs_err"] for r in rec.values()),
+            ms=main_b["ms"], plain_ms=main_b["plain_ms"],
+            bound_ms=main_b["bound_ms"], bound_by=main_b["bound_by"],
+            library_ms=None, parity_ok=True, shape=main_b["shape"],
+            per_hop_ms=main_b["per_hop_ms"],
+            max_lane_hops=main_b["max_lane_hops"],
+            variants={p: dict(r, launches=la[_path_name(p, path)][
+                f"{name}.{p}"], launches_path=_path_name(p, path))
+                      for p, r in rec.items() if p != "f32"}))
     top = segtree_l2_shapes(args.bench_n)[0]
     l2_main = next(r for r in l2 if r["shape"] == "x".join(map(str, top))
                    and r["dtype"] == "f32")

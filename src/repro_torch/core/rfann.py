@@ -73,7 +73,9 @@ class RNSGIndex:
         routing) | "scan" / "beam" (forced strategy).
         beam_width: batched-expansion width for beam dispatches (1 = the
         single-node hop; B>1 fuses B node expansions per hop).
-        use_kernel: score the beam's neighbors with the gather kernels.
+        use_kernel: run each beam dispatch's hop loop in one fused kernel
+        (``ops.beam_single`` / ``ops.beam_batched``) and the quantized
+        rerank in ``gather_rerank``.
         precision: "f32" | "int8" | "bf16" — quantized scoring (scan and
         traversal against the int8/bf16 corpus copy, ``install_quantized``)
         with an exact f32 rerank of the survivors (same top-k ids as f32

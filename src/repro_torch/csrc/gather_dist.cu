@@ -24,10 +24,11 @@
 // dominates.
 //
 // Design: the TPU kernels steer one (1, d) row DMA per grid step from
-// scalar-prefetched ids.  Here one warp owns one gathered row: lanes stride
-// over d (neighbouring lanes on neighbouring elements, one coalesced line
-// per warp load, any d), accumulate (x*scale - q)^2 with FMAs and reduce
-// with shuffles.  gather_dist spreads the Q*M rows over blocks of 8 warps.
+// scalar-prefetched ids.  Here one warp owns one gathered row (score.cuh's
+// row_d2, which the fused beam of beam.cu shares): lanes stride over d
+// (neighbouring lanes on neighbouring elements, one coalesced line per warp
+// load, any d), accumulate (x*scale - q)^2 with FMAs and reduce with
+// shuffles.  gather_dist spreads the Q*M rows over blocks of 8 warps.
 // The top-k kernels run one block per query: its warps write each
 // position's packed (dist, position) key to shared memory and the block
 // bitonic-sorts them.  Where next_pow2(max(M, k)) keys fit one tile
@@ -42,25 +43,10 @@
 #include <stdint.h>
 
 #include "corpus.cuh"
+#include "score.cuh"
 #include "topk_key.cuh"
 
 #define THREADS 256
-
-template <typename T>
-__device__ __forceinline__ float row_d2(const T* __restrict__ xr,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ qr, int d,
-                                        int lane) {
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float xv = to_f32(__ldg(xr + c));
-    // rounded apart from the subtraction, as the plain version rounds it
-    if (scale != nullptr) xv = __fmul_rn(xv, __ldg(scale + c));
-    const float df = xv - __ldg(qr + c);
-    acc = fmaf(df, df, acc);
-  }
-  return warp_sum(acc);
-}
 
 template <typename T>
 __global__ void gather_dist_kernel(const T* __restrict__ x,

@@ -55,6 +55,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, x, dtype, out, Q, N, d, stream
         "l2dist_launch": [_P, _P, _I, _P] + [_I] * 3 + [_P],
     },
+    "beam": {
+        # x, dtype, scale, nbrs, q, lo, hi, seeds, init_d, init_id, init_e,
+        # out_d, out_id, out_steps, out_ndist, visited, pool, Q, d, m, E,
+        # ef, B, H, W, steps_cap, early_stop, pool_global, layout, stream
+        "beam_single_launch": [_P, _I] + [_P] * 15 + [_I] * 11 + [_P] * 2,
+        "beam_batched_launch": [_P, _I] + [_P] * 15 + [_I] * 11 + [_P] * 2,
+    },
 }
 
 #: element types the kernels take, by their code in ``csrc/corpus.cuh``

@@ -14,11 +14,12 @@ per-dimension ``scale``, or bf16; ``repro_torch.kernels.quantize``).
 
 ``LAUNCHES`` counts the wrapper calls that launched a CUDA kernel (a CPU
 call counts nothing): the scoring kernels per corpus dtype, under
-``"<kernel>.<f32|int8|bf16>"``, ``"gather_rerank"``, and ``l2dist`` per
-input dtype (``"l2dist.f32"``, ``"l2dist.bf16"``), so a run can show
-that its path went through the kernels, and through which variant: zero
-the counts with ``reset_launches`` just before the run and read them just
-after."""
+``"<kernel>.<f32|int8|bf16>"`` (``range_scan``, ``gather_dist``,
+``gather_topk`` and the fused beams ``beam_single`` and ``beam_batched``),
+``"gather_rerank"``, and ``l2dist`` per input dtype (``"l2dist.f32"``,
+``"l2dist.bf16"``), so a run can show that its path went through the
+kernels, and through which variant: zero the counts with
+``reset_launches`` just before the run and read them just after."""
 from __future__ import annotations
 
 from typing import Dict
@@ -32,7 +33,8 @@ DTYPE_NAMES = {torch.float32: "f32", torch.int8: "int8",
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     [f"{kernel}.{dt}"
-     for kernel in ("range_scan", "gather_dist", "gather_topk")
+     for kernel in ("range_scan", "gather_dist", "gather_topk",
+                    "beam_single", "beam_batched")
      for dt in DTYPE_NAMES.values()] + ["gather_rerank", "l2dist.f32",
                                         "l2dist.bf16"], 0)
 
@@ -76,7 +78,8 @@ def gather_dist(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
 
 def gather_topk(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
                 k: int, scale: torch.Tensor | None = None):
-    """Fused gather + score + top-k: the batched beam's frontier feed.
+    """Fused gather + score + top-k: the reference's batched-beam frontier
+    feed (on the card the fused ``beam_batched`` does it inside its loop).
     ids (Q,M), negative = masked -> (ids:(Q,k) i32 ascending distance (-1
     pad), dists:(Q,k) f32 (+inf pad)), ties toward the lower input position.
     Raises ``ValueError`` for a k beyond the reference kernel's running
@@ -104,6 +107,44 @@ def gather_rerank(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
     from repro_torch.kernels.gather_dist import gather_rerank_cuda
     out = gather_rerank_cuda(x, ids, q, k=k)
     _count("gather_rerank")
+    return out
+
+
+def beam_single(x: torch.Tensor, scale, nbrs: torch.Tensor, qv, lo, hi,
+                entry, *, ef: int, steps_cap: int, early_stop: bool):
+    """The bw-1 beam's whole hop loop over a batch: x (n,d) the corpus the
+    traversal scores (f32, or int8/bf16 with ``scale``), nbrs (n,m) i32,
+    qv (Q,d) f32, lo/hi (Q,) rank bounds, entry (Q,) or (Q,E) ->
+    (cand_d (Q,ef) f32, cand_ids (Q,ef) i64, hops (Q,), ndist (Q,)): the
+    final pool, ascending.  The plain version is the lockstep loop
+    (``ref.beam_single_ref``); a CUDA tensor launches one fused kernel for
+    the batch."""
+    if x.device.type == "cpu":
+        return ref.beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
+                                   steps_cap=steps_cap,
+                                   early_stop=early_stop)
+    from repro_torch.kernels.beam import beam_single_cuda
+    out = beam_single_cuda(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
+                           steps_cap=steps_cap, early_stop=early_stop)
+    _count("beam_single", x)
+    return out
+
+
+def beam_batched(x: torch.Tensor, scale, nbrs: torch.Tensor, qv, lo, hi,
+                 entry, *, ef: int, steps_cap: int, early_stop: bool,
+                 beam_width: int):
+    """The bw-``beam_width`` beam's whole hop loop over a batch, as
+    ``beam_single`` (plain version: ``ref.beam_batched_ref``)."""
+    if x.device.type == "cpu":
+        return ref.beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry,
+                                    ef=ef, steps_cap=steps_cap,
+                                    beam_width=beam_width,
+                                    early_stop=early_stop)
+    from repro_torch.kernels.beam import beam_batched_cuda
+    out = beam_batched_cuda(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
+                            steps_cap=steps_cap, early_stop=early_stop,
+                            beam_width=beam_width)
+    _count("beam_batched", x)
     return out
 
 

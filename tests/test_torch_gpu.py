@@ -1,7 +1,8 @@
 """On the card: each hand-written kernel against its plain PyTorch version
-(f32, int8 and bf16 corpora; the f32 rerank at every M and k; l2dist), the
-quantized corpus against the CPU's bit for bit, and the slices end to end
-(the benchmark's baselines included).  Marked
+(f32, int8 and bf16 corpora; the f32 rerank at every M and k; l2dist; the
+fused beam against the lockstep loop), the quantized corpus against the
+CPU's bit for bit, and the slices end to end (the benchmark's baselines
+included).  Marked
 ``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
 present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
 import numpy as np
@@ -184,9 +185,13 @@ def test_slice_end_to_end_on_card(cuda):
                     for r in range(len(qv)):
                         assert set(ids[r][ids[r] >= 0]) == \
                             set(gt[r][gt[r] >= 0])
+    # the search path runs the fused beams; the per-hop gathers and l2dist
+    # are not on it
+    off = ("l2dist", "gather_dist", "gather_topk")
     assert all(c > 0 for name, c in ops.LAUNCHES.items()
-               if not name.startswith("l2dist")), ops.LAUNCHES
-    assert not any(ops.LAUNCHES[f"l2dist.{dt}"] for dt in ("f32", "bf16"))
+               if not name.startswith(off)), ops.LAUNCHES
+    assert not any(c for name, c in ops.LAUNCHES.items()
+                   if name.startswith(off)), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("q,n,d", [(1, 1, 1), (4, 7, 3), (100, 300, 130),
@@ -231,3 +236,108 @@ def test_baselines_end_to_end_on_card(cuda):
                 assert np.array_equal(ids, gt)
     assert not any(c for name, c in ops.LAUNCHES.items()
                    if name.startswith("gather"))
+
+
+#: (bw, ef, early_stop, precision, multi-entry) of the fused beam's card
+#: test: the CPU model's grid (tests/test_torch_beam_fused.py) and the exact
+#: phase's ef = n = 4096 at bw 1 and 4
+BEAM_CASES = ([(bw, ef, True, p, mu) for bw in (1, 2, 4, 8)
+               for ef in (8, 64, 256) for p in ("f32", "int8", "bf16")
+               for mu in (False, True)]
+              + [(bw, ef, False, "f32", mu) for bw in (1, 2, 4, 8)
+                 for ef in (8, 64) for mu in (False, True)]
+              + [(1, 256, False, "bf16", True), (1, 4096, True, "f32", False),
+                 (4, 4096, True, "f32", True)])
+
+
+def _beam_inputs(cuda, precision, multi, n=4096, d=32, q=128, m=24):
+    """A random graph (pads, duplicate ids in rows), queries and ranges of
+    every width, a lane with lo > hi, and the corpus the beam scores."""
+    from repro_torch.kernels.quantize import quantize_corpus
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32)
+    nbrs = rng.integers(0, n, (n, m)).astype(np.int32)
+    nbrs[rng.random((n, m)) < 0.15] = -1
+    dup = rng.integers(0, n, 300)
+    nbrs[dup, 3] = nbrs[dup, 1]
+    lo = rng.integers(0, n, q)
+    hi = np.minimum(lo + (n >> rng.integers(0, 10, q)), n - 1)
+    lo[5], hi[5] = 300, 299
+    entry = np.stack([(lo + hi) // 2, lo, hi], 1).clip(0, n - 1)
+    entry[::7, 1] = -1
+    if not multi:
+        entry = entry[:, 0]
+    scale = None
+    if precision != "f32":
+        qc = quantize_corpus(x, precision)
+        x, scale = qc.data, qc.scale
+        scale = None if scale is None else scale.to(cuda)
+    qv = torch.as_tensor(rng.standard_normal((q, d)), dtype=torch.float32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    return (x.to(cuda), scale, t(nbrs), qv.to(cuda), t(lo), t(hi), t(entry))
+
+
+@pytest.mark.parametrize(
+    "bw,ef,early_stop,precision,multi", BEAM_CASES,
+    ids=[f"bw{c[0]}-ef{c[1]}-{'stop' if c[2] else 'cap'}-{c[3]}-"
+         f"entry{3 if c[4] else 1}" for c in BEAM_CASES])
+def test_fused_beam_matches_lockstep_loop(cuda, bw, ef, early_stop,
+                                          precision, multi):
+    """One launch of beam_single / beam_batched against the plain loop on
+    the same card tensors: hops and ndist equal on >= 99 % of lanes, and
+    the final pools' finite top-10 equal there up to near-ties (the kernel
+    sums a row in another order than torch)."""
+    from repro_torch.kernels import ref
+    args = _beam_inputs(cuda, precision, multi)
+    kw = dict(ef=ef, steps_cap=8 * ef + 64, early_stop=early_stop)
+    name = "beam_batched" if bw > 1 else "beam_single"
+    if bw > 1:
+        kw["beam_width"] = bw
+    ops.reset_launches()
+    got = getattr(ops, name)(*args, **kw)
+    assert ops.LAUNCHES[f"{name}.{ops.DTYPE_NAMES[args[0].dtype]}"] == 1
+    want = getattr(ref, f"{name}_ref")(*args, **kw)
+    same = ((got[2] == want[2]) & (got[3] == want[3])).cpu().numpy()
+    assert same.mean() >= 0.99, np.flatnonzero(~same)
+    k = min(10, ef)
+    rows = torch.as_tensor(np.flatnonzero(same), device=cuda)
+    pick = lambda t: t[rows][:, :k]
+    gd, wd = pick(got[0]), pick(want[0])
+    gi = torch.where(torch.isfinite(gd), pick(got[1]), -1)
+    wi = torch.where(torch.isfinite(wd), pick(want[1]), -1)
+    _same((gi, gd), (wi, wd))
+
+
+def test_fused_beam_pool_in_global_memory(cuda):
+    """An ef whose pool does not fit shared memory beside the rest of the
+    block's state runs in the same kernel with the pool in a global
+    scratch row, and matches the lockstep loop."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.beam import beam_plan
+    ef = 13_000
+    assert beam_plan(ef, 24, 1, 32).pool_global
+    args = _beam_inputs(cuda, "f32", False, q=16)
+    kw = dict(ef=ef, steps_cap=8 * ef + 64, early_stop=True)
+    got = ops.beam_single(*args, **kw)
+    want = ref.beam_single_ref(*args, **kw)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    _same((torch.where(torch.isfinite(got[0]), got[1], -1)[:, :10],
+           got[0][:, :10]),
+          (torch.where(torch.isfinite(want[0]), want[1], -1)[:, :10],
+           want[0][:, :10]))
+
+
+def test_fused_beam_refuses_state_beyond_every_plan(cuda):
+    """A block state that fits no plan (here a query row of 40,000 floats
+    beside its scale) is refused before any launch, with ValueError, and
+    counts nothing."""
+    n, d = 64, 40_000
+    x = torch.zeros((n, d), device=cuda)
+    nbrs = torch.zeros((n, 8), dtype=torch.int32, device=cuda)
+    qv = torch.zeros((2, d), device=cuda)
+    lo = torch.zeros(2, dtype=torch.long, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError):
+        ops.beam_single(x, None, nbrs, qv, lo, lo + n - 1, lo, ef=64,
+                        steps_cap=576, early_stop=True)
+    assert not any(ops.LAUNCHES.values())
