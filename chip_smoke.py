@@ -68,8 +68,12 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-8. the ``{"kernels": [...]}`` line;
-9. the last line ``{"ok": true, "device": {...}}``.
+8. device times — range_scan's and l2dist's timed parity shapes again,
+             under torch.profiler: device time and device launches per
+             call (last, because a profiler session slows the host-side
+             torch ops of every later phase);
+9. the ``{"kernels": [...]}`` line;
+10. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -79,6 +83,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -113,6 +118,54 @@ def _time_ms(fn, reps: int) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+#: (record, call, calls, label) whose device time is read under
+#: torch.profiler after every timed phase: a profiler session leaves CUPTI
+#: hooks behind that slow every later host-side torch op of the process,
+#: so readings taken between phases would slow the timings that follow
+_DEVICE_PROBES: list = []
+
+
+def _device_probe(rec: dict, fn, label: str, calls: int = 10) -> None:
+    """Queue a device-time reading of fn into rec (``device_ms``,
+    ``launches_per_call``); fn must bind its operands now (no late-bound
+    loop variables)."""
+    _DEVICE_PROBES.append((rec, fn, calls, label))
+
+
+def phase_device_times():
+    """The queued device-time readings, after every timed phase."""
+    for rec, fn, calls, label in _DEVICE_PROBES:
+        rec["device_ms"], rec["launches_per_call"], _ = _device_ms(fn, calls)
+        print(f"[device] {label}: device_ms={rec['device_ms']:.4f} "
+              f"({rec['launches_per_call']:g} launches per call)")
+    _DEVICE_PROBES.clear()
+
+
+def _device_ms(fn, calls: int = 10):
+    """(device ms per call, device launches per call, {kernel: device ms
+    per call}) of fn under torch.profiler: each kernel's mean time per
+    launch, times its launches per call (at least one; the profiler may
+    drop events, never add them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, launches = {}, 0
+    for e in p.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            per_call = max(1, round(e.count / calls))
+            kernels[e.key] = (e.self_device_time_total / 1e3 / e.count
+                              * per_call)
+            launches += per_call
+    return sum(kernels.values()), launches, kernels
 
 
 def _compare(name, got, want, atol):
@@ -200,12 +253,13 @@ def phase_parity(x_pad, vecs, n, seed):
         lens[0] = 0                                           # empty window
         starts[1], lens[1] = n - 1, 1                         # tail row
         starts[2] = 128 * 7 + 37                              # unaligned
-        st = torch.as_tensor(starts, device=dev)
-        ln = torch.as_tensor(lens, device=dev)
-        run_k = lambda: ops.range_scan(x_pad, st, ln, qv, bucket=b, k=10,
-                                       n_valid=n)
-        run_p = lambda: ref.range_scan_ref(x_pad, st, ln, qv, bucket=b, k=10,
-                                           n_valid=n)
+        # int32, as the search path passes them (no conversion launch)
+        st = torch.as_tensor(starts.astype(np.int32), device=dev)
+        ln = torch.as_tensor(lens.astype(np.int32), device=dev)
+        run_k = functools.partial(ops.range_scan, x_pad, st, ln, qv,
+                                  bucket=b, k=10, n_valid=n)
+        run_p = functools.partial(ref.range_scan_ref, x_pad, st, ln, qv,
+                                  bucket=b, k=10, n_valid=n)
         err = _compare(f"range_scan b={b}", run_k(), run_p(), atol)
         rows = int(_covered(starts, lens, n).sum())
         nbytes = rows * d_pad * 4 + qv.numel() * 4 + nq * 8 + nq * 10 * 8
@@ -217,6 +271,7 @@ def phase_parity(x_pad, vecs, n, seed):
         rs.append(dict(bucket=b, q=nq, k=10, ms=ms, plain_ms=pms,
                        bound_ms=bound, bound_by=by, max_abs_err=err,
                        rows=rows))
+        _device_probe(rs[-1], run_k, f"range_scan f32 bucket={b} k=10")
         print(f"[parity] range_scan q={nq} d_pad={d_pad} bucket={b} k=10 "
               f"ok err={err:.3g} ms={ms:.4f} plain_ms={pms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
@@ -228,7 +283,8 @@ def phase_parity(x_pad, vecs, n, seed):
     live = torch.as_tensor(rng.random((1, x_pad.shape[0])) < 0.7,
                            device=dev).int()
     for kw in (dict(k=10, n_valid=n - 2000), dict(k=10, live=live),
-               dict(k=128), dict(k=300, live=live), dict(k=4096),
+               dict(k=1), dict(k=128), dict(k=256, live=live),
+               dict(k=257), dict(k=300, live=live), dict(k=4096),
                dict(k=5000, live=live)):
         _compare(f"range_scan edge {kw.get('k')} {sorted(kw)}",
                  ops.range_scan(x_pad, st, ln, qv, bucket=4096, **kw),
@@ -240,8 +296,16 @@ def phase_parity(x_pad, vecs, n, seed):
              ops.range_scan(x_pad, st, ln, qv, bucket=65536, k=4096),
              ref.range_scan_ref(x_pad, st, ln, qv, bucket=65536, k=4096),
              atol)
-    print("[parity] range_scan edges ok (n_valid tail, live, k=128, k=300, "
-          "k=4096, k=5000 > window, k=4096 at bucket 65536)")
+    # the select path's largest k over a window of many chunks
+    _compare("range_scan edge k=256 bucket=65536",
+             ops.range_scan(x_pad, st, ln, qv, bucket=65536, k=256,
+                            live=live),
+             ref.range_scan_ref(x_pad, st, ln, qv, bucket=65536, k=256,
+                                live=live),
+             atol)
+    print("[parity] range_scan edges ok (n_valid tail, live, k=1, k=128, "
+          "k=256, k=257, k=300, k=4096, k=5000 > window, k=4096 and k=256 "
+          "at bucket 65536)")
 
     q = qv[:, :vecs.shape[1]].contiguous()
     d = vecs.shape[1]
@@ -355,14 +419,16 @@ def phase_parity_quant(x_pad, vecs, n, seed):
             lens[0] = 0
             starts[1], lens[1] = n - 1, 1
             starts[2] = 128 * 7 + 37
-            st = torch.as_tensor(starts, device=dev)
-            ln = torch.as_tensor(lens, device=dev)
+            st = torch.as_tensor(starts.astype(np.int32), device=dev)
+            ln = torch.as_tensor(lens.astype(np.int32), device=dev)
             rows = int(_covered(starts, lens, n).sum())
             scored = np.clip(np.minimum(starts + lens, n) - starts, 0, None)
             for k in (10, 128):
                 kw = dict(bucket=b, k=k, n_valid=n, scale=scale)
-                run_k = lambda: ops.range_scan(data_pad, st, ln, qv, **kw)
-                run_p = lambda: ref.range_scan_ref(data_pad, st, ln, qv, **kw)
+                run_k = functools.partial(ops.range_scan, data_pad, st, ln,
+                                          qv, **kw)
+                run_p = functools.partial(ref.range_scan_ref, data_pad, st,
+                                          ln, qv, **kw)
                 err = _compare(f"range_scan {p} b={b} k={k}", run_k(),
                                run_p(), atol)
                 bound, by = _bound(
@@ -374,6 +440,8 @@ def phase_parity_quant(x_pad, vecs, n, seed):
                 rs.append(dict(bucket=b, q=nq, k=k, ms=ms, plain_ms=pms,
                                bound_ms=bound, bound_by=by, max_abs_err=err,
                                rows=rows))
+                _device_probe(rs[-1], run_k,
+                              f"range_scan {p} bucket={b} k={k}")
                 print(f"[parity] range_scan {p} q={nq} d_pad={d_pad} "
                       f"bucket={b} k={k} ok err={err:.3g} ms={ms:.4f} "
                       f"plain_ms={pms:.4f} bound_ms={bound:.4f} ({by})")
@@ -384,7 +452,7 @@ def phase_parity_quant(x_pad, vecs, n, seed):
         st = torch.as_tensor(starts, device=dev)
         ln = torch.as_tensor(rng.integers(0, 4097, nq), device=dev)
         for kw in (dict(k=128, live=live), dict(k=10, n_valid=n - 2000),
-                   dict(k=300, live=live)):
+                   dict(k=256, live=live), dict(k=300, live=live)):
             _compare(f"range_scan {p} edge {sorted(kw)} k={kw['k']}",
                      ops.range_scan(data_pad, st, ln, qv, bucket=4096,
                                     scale=scale, **kw),
@@ -540,6 +608,8 @@ def phase_l2dist(seed, bench_n):
         if (q, n, d) in timed:
             reps = 10 if q * n > 1 << 24 else 50
             rec["ms"] = _time_ms(lambda: ops.l2dist(a, b), reps)
+            _device_probe(rec, functools.partial(ops.l2dist, a, b),
+                          f"l2dist {q}x{n}x{d} {rec['dtype']}", 5)
             rec["plain_ms"] = _time_ms(lambda: ref.l2dist_ref(a, b), reps)
             rec["library_ms"] = (_time_ms(lambda: torch.cdist(
                 a, b, compute_mode="use_mm_for_euclid_dist"), reps)
@@ -671,13 +741,14 @@ def phase_full(n, nq, batch, seed, ops):
     print(f"[full] data n={n} d={d} nq={nq} made in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' device probes
     ops.reset_launches()
     idx = RNSGIndex.build(base, attrs, m=32, ef_spatial=32, ef_attribute=48)
     st = idx.stats()
     print(f"[full] build {st['build_seconds']:.2f} s edges={st['edges']} "
           f"mean_degree={st['mean_degree']:.3f} max_degree={st['max_degree']} "
           f"index_mb={st['index_mb']:.1f} peak_gb="
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} "
           f"launches={dict(ops.LAUNCHES)}")
     install = {}
     for prec in PRECISIONS[1:]:
@@ -690,7 +761,7 @@ def phase_full(n, nq, batch, seed, ops):
         print(f"[full] install_quantized({prec!r}) {install[prec]:.3f} s "
               f"(data {tuple(slot['data'].shape)} {slot['data'].dtype}, "
               f"{slot['bytes_per_vector']} B per vector) peak_gb="
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f}")
     t0 = time.perf_counter()
     gt, gd = ground_truth(base, attrs, qv, ranges, 10)
     print(f"[full] ground truth on the card in {time.perf_counter() - t0:.2f} s")
@@ -1180,6 +1251,7 @@ def main() -> int:
     phase_witness(args.seed + 3, out)
     phase_witness_segtree(out)
     bench = phase_bench(args.bench_n, args.bench_nq, out)
+    phase_device_times()
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
     la = full["launches"]
@@ -1196,6 +1268,8 @@ def main() -> int:
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], shape=r.get("shape"))
+            if "device_ms" in r:
+                res[prec]["device_ms"] = r["device_ms"]
         return res
 
     scan_main = lambda rec: dict(
@@ -1212,9 +1286,14 @@ def main() -> int:
              ms=main_rs["ms"], plain_ms=main_rs["plain_ms"],
              bound_ms=main_rs["bound_ms"], bound_by=main_rs["bound_by"],
              library_ms=None, parity_ok=True,
+             state="redesigned: one launch for k <= 256 (per-warp "
+                   "threshold lists, last-arrival merge)",
+             device_ms=main_rs["device_ms"],
+             launches_per_call=main_rs["launches_per_call"],
              shape=f"q=64 d_pad=128 bucket=8192 k=10 n={n}",
              variants=variants("range_scan", "bw1_kernel", scan_main)),
         dict(name="gather_dist", route="cuda",
+             state="fused into beam_single on the search path",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:79",
              launches=la["bw1_kernel"]["gather_dist.f32"],
@@ -1229,6 +1308,7 @@ def main() -> int:
              variants=variants("gather_dist", "bw1_kernel",
                                lambda r: dict(r, shape="q=64 m=32 d=128"))),
         dict(name="gather_topk", route="cuda",
+             state="fused into beam_batched on the search path",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:179",
              launches=la["bw4_kernel"]["gather_topk.f32"],
@@ -1244,7 +1324,7 @@ def main() -> int:
              variants=variants("gather_topk", "bw4_kernel",
                                lambda r: dict(r,
                                               shape="q=64 m=128 k=64 d=128"))),
-        dict(name="gather_rerank", route="cuda",
+        dict(name="gather_rerank", route="cuda", state="ported",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:260",
              launches=la["int8_bw1_kernel"]["gather_rerank"],
@@ -1266,6 +1346,7 @@ def main() -> int:
         main_b = rec["f32"]
         kern.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/beam.cu",
+            state="the fused hop loop",
             replaces=f"src/repro/kernels/gather_dist.py:{line}",
             launches=la[path][f"{name}.f32"], launches_path=path,
             graph_partitions=full["dispatches"][path],
@@ -1290,6 +1371,9 @@ def main() -> int:
         ms=l2_main["ms"], plain_ms=l2_main["plain_ms"],
         bound_ms=l2_main["bound_ms"], bound_by=l2_main["bound_by"],
         library_ms=l2_main["library_ms"], parity_ok=True,
+        state="redesigned: 128 x 128 tiles, 8 x 8 per thread, two d-major "
+              "shared-memory stages",
+        device_ms=l2_main["device_ms"],
         shape=f"q={top[0]} n={top[1]} d={top[2]} f32 (the segment-tree "
               f"build's top-level tile)",
         other_shapes=[dict(r, shape=f"{r['shape']} {r['dtype']}")

@@ -14,31 +14,56 @@
 // What bounds it on an H100: bytes.  Each scored row is d_pad elements read
 // once (4, 1 or 2 bytes each) and takes 4*d_pad flops (two FMAs per
 // element), at most 4 flops per byte (int8), far below the card's
-// 67 TFLOP/s f32 over 3.35 TB/s (20 flops per byte).  The design reads each
-// in-window row once with one vector load per lane per 4 elements (a warp
-// covers a d_pad = 128 row in one coalesced pass: 16 B per lane for f32,
-// 4 B for int8, 8 B for bf16), never reads a masked row or a row at or past
-// n_pad, and skips a whole chunk that misses the window.  The (Q, W)
-// distance matrix is never written: selection happens in shared memory.
+// 67 TFLOP/s f32 over 3.35 TB/s (20 flops per byte).  Every design below
+// reads each in-window row once per query, never reads a masked row or a
+// row at or past n_pad, and skips what misses the window.  The (Q, W)
+// distance matrix is never written: selection happens on chip.
 //
-// Design: the TPU kernel walks a window's row blocks in order on one core
-// and folds each into a running top-k; GPU blocks run in parallel and in no
-// order.  So pass 1 has grid (Q, S): block (i, c) owns R consecutive window
-// rows, one warp per row at a time (q, |q|^2 and the scale in shared
-// memory), writes each row's packed (dist, rank) key to shared memory,
-// bitonic-sorts the R keys and writes its kc = min(k, R) best to a
-// (Q, S, kc) scratch.  Pass 2 has one block per query: it folds the S*kc
-// candidates through a shared buffer (running best P = next_pow2(k) keys
-// plus a tile of new ones, bitonic-sorted per tile) and writes ids and
-// dists.  The rank rides in the key, so ties break toward the lower rank
-// whatever the block order.  Only pass 1 depends on the corpus type.
+// The TPU kernel walks a window's row blocks in order on one core and
+// folds each into a running top-k; GPU blocks run in parallel and in no
+// order.  Blocks own (query, chunk of R window rows); the rank rides in
+// the packed (dist, rank) key, so ties break toward the lower rank
+// whatever order the blocks finish in.  The wrapper sizes R
+// (kernels/range_scan.py::scan_plan): on the select path about 256 KB of
+// rows per block (512 f32 rows at d_pad = 128, 2048 int8), so a block's
+// fixed cost, its merges, stays small beside its loads.
 //
-// Every k the reference takes stays in the kernel.  While 2*next_pow2(k)
-// keys fit one block's shared memory (k <= SMEM_K) the merge above runs.
-// Past that, pass 1 keeps whole chunks (kc = R = SMEM_K) over a pow2 number
-// of chunks S, so each query's S*R keys are sorted runs of R; a bitonic
-// merge in global memory (merge_sorted_runs) sorts the row, and the first k
-// keys leave as ids and dists.
+// The wrapper (kernels/range_scan.py::scan_plan) owns the choice of path
+// and passes it to the launcher with R and S.
+//
+// k <= SELECT_K = 256 (kernels/range_scan.py), the select path (the main
+// path: k = 10, and the quantized scan's rerank_depth = 128): one launch,
+// range_scan_select.
+//   * Rows in flight.  A warp is four groups of 8 lanes, each group one row:
+//     per 128-element segment of a row, each lane issues 16-byte loads
+//     (4 for f32, 2 for bf16, 1 for int8) for U = 8 / sizeof(T) rows before
+//     any arithmetic, so every lane has 8 loads (128 bytes) in flight and a
+//     warp 4U rows; the group folds its partial sums with three shuffles.
+//     The query (and the scale) sit in shared memory permuted so each lane
+//     reads its own 16 values as 4 conflict-free float4s.
+//   * No sort to keep k.  Each warp keeps a sorted list of k keys and its
+//     k-th key as a threshold; a row enters only if its key beats the
+//     threshold, through a 64-key per-warp queue (ballot + popc slots).  A
+//     full queue is bitonic-sorted within the warp and merged into the
+//     list by rank (each key's place is its index plus a binary search in
+//     the other list), which also tightens the threshold.  The block folds
+//     its 8 warp lists in three pairwise rank merges.
+//   * One launch.  A window one chunk covers is emitted by its block.  Else
+//     each block writes its k keys to a (Q, S, k) scratch and takes a
+//     ticket from a per-query arrival counter (threadfence, atomicAdd); the
+//     last block of the query feeds the S sorted lists through the same
+//     threshold queue (a list is left at its first key that misses the
+//     threshold), merges, emits, and sets the counter back to 0 for the
+//     next launch.
+//
+// 256 < k: two passes, off the main path.  Pass 1 (range_scan_partial,
+// grid (Q, S)) scores R rows per block, one warp per row, bitonic-sorts the
+// R keys and writes its kc = min(k, R) best; while 2*next_pow2(k) keys fit
+// shared memory (next_pow2(k) <= 2048) range_scan_merge folds each query's S*kc
+// candidates through a bitonic-sorted buffer; past that, pass 1 keeps
+// whole chunks over a pow2 number of chunks, a bitonic merge in global
+// memory (merge_sorted_runs) sorts each row, and range_scan_emit writes
+// the first k.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,8 +71,342 @@
 #include "topk_key.cuh"
 
 #define THREADS 256
-// largest next_pow2(k) whose merge buffer (2*P keys) stays in shared memory
-#define SMEM_K 2048
+#define NWARPS (THREADS / 32)
+// per-warp candidate queue (keys that beat the warp's threshold)
+#define QCAP 64
+
+// --- the select path (k <= 256) ----------------------------------------
+
+// Word i of a 16-byte vector (i a compile-time constant after unrolling).
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// Element m of a 16-byte vector of T, upcast to f32 (exact).
+template <typename T>
+__device__ __forceinline__ float vec_elem(const uint4& r, int m);
+template <>
+__device__ __forceinline__ float vec_elem<float>(const uint4& r, int m) {
+  return __uint_as_float(word(r, m));
+}
+template <>
+__device__ __forceinline__ float vec_elem<bf16_bits>(const uint4& r, int m) {
+  const uint32_t v = word(r, m >> 1);
+  return __uint_as_float((m & 1) ? (v & 0xFFFF0000u) : (v << 16));
+}
+template <>
+__device__ __forceinline__ float vec_elem<int8_t>(const uint4& r, int m) {
+  // sign-extend byte m & 3 of its word
+  return (float)((int)(word(r, m >> 2) << (24 - 8 * (m & 3))) >> 24);
+}
+
+// The row element that float4 slot j (0..3) of lane g (0..7 in its group)
+// starts at, within a 128-element segment: the lane loads 16-byte vectors
+// g, g + 8, ... of the segment, and its 16 elements fill 4 float4 slots.
+template <typename T>
+__device__ __forceinline__ int lane_elem(int g, int j) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int F = E / 4;           // float4 slots per vector
+  return (g + 8 * (j / F)) * E + (j % F) * 4;
+}
+
+// Keys of s[0, n) (ascending) below v / at or below v.
+__device__ __forceinline__ int count_below(const key_t64* s, int n,
+                                           key_t64 v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+__device__ __forceinline__ int count_upto(const key_t64* s, int n,
+                                          key_t64 v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The first k keys of the stable merge of a (na keys) and b (nb keys),
+// both ascending, into out (a buffer apart from both), by one warp: a
+// key's place is its index plus the keys of the other list before it (b's
+// ties go after a's), so the places are a permutation and na + nb >= k
+// fills out[0, k).
+__device__ void warp_merge(const key_t64* a, int na, const key_t64* b,
+                           int nb, key_t64* out, int k, int lane) {
+  for (int i = lane; i < min(na, k); i += 32) {
+    const key_t64 v = a[i];
+    const int p = i + count_below(b, nb, v);
+    if (p < k) out[p] = v;
+  }
+  for (int j = lane; j < min(nb, k); j += 32) {
+    const key_t64 v = b[j];
+    const int p = j + count_upto(a, na, v);
+    if (p < k) out[p] = v;
+  }
+  __syncwarp();
+}
+
+// One warp's running top-k: a sorted list of k keys (in one of two
+// buffers; the merge writes the other), its k-th key as the threshold, and
+// a queue of keys that beat it.
+struct WarpTopk {
+  key_t64* list;
+  key_t64* alt;
+  key_t64* queue;
+  key_t64 thr;
+  int qc;
+  int k;
+
+  __device__ void reset(int lane) {
+    for (int i = lane; i < k; i += 32) list[i] = KEY_NONE;
+    thr = KEY_NONE;
+    qc = 0;
+    __syncwarp();
+  }
+
+  // Appends the keys of the lanes with `pass` set (qc + their count must
+  // stay within QCAP).
+  __device__ void push(bool pass, key_t64 key, int lane) {
+    const unsigned m = __ballot_sync(0xffffffffu, pass);
+    if (pass) queue[qc + __popc(m & ((1u << lane) - 1u))] = key;
+    qc += __popc(m);
+  }
+
+  // Sorts the queue, merges it into the list, tightens the threshold.
+  __device__ void flush(int lane) {
+    for (int i = qc + lane; i < QCAP; i += 32) queue[i] = KEY_NONE;
+    __syncwarp();
+    for (int size = 2; size <= QCAP; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const int i = 2 * lane - (lane & (stride - 1));
+        const key_t64 a = queue[i], b = queue[i + stride];
+        if ((a > b) == ((i & size) == 0)) {
+          queue[i] = b;
+          queue[i + stride] = a;
+        }
+        __syncwarp();
+      }
+    }
+    warp_merge(list, k, queue, qc, alt, k, lane);
+    key_t64* t = list;
+    list = alt;
+    alt = t;
+    thr = list[k - 1];
+    qc = 0;
+  }
+};
+
+// Folds the NWARPS warp lists (warp w's in bufs + (2w + cur[w]) * k) into
+// one, in log2(NWARPS) rounds of pairwise merges, each into the other
+// buffer of its slot; returns the block's k best.  All threads call it.
+__device__ const key_t64* block_merge(key_t64* bufs, int* cur, int k,
+                                      int warp, int lane) {
+  __syncthreads();
+  for (int step = 1; step < NWARPS; step <<= 1) {
+    const int s = warp * 2 * step;
+    if (s + step < NWARPS) {
+      const int cs = cur[s];
+      warp_merge(bufs + (2 * s + cs) * k, k,
+                 bufs + (2 * (s + step) + cur[s + step]) * k, k,
+                 bufs + (2 * s + (cs ^ 1)) * k, k, lane);
+      if (lane == 0) cur[s] = cs ^ 1;
+    }
+    __syncthreads();
+  }
+  return bufs + cur[0] * k;
+}
+
+// grid (Q, S), THREADS threads; block (i, c) scores window rows
+// [c*R, (c+1)*R) of query i.  Dynamic shared memory: NWARPS * 2 * k list
+// keys, NWARPS * QCAP queue keys, then the permuted query and scale
+// (d_pad floats each).  partial: (Q, S, k) keys and arrivals: (Q,) ints
+// (all 0 before the launch, and again after it), both unused when S = 1.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+    range_scan_select(const T* __restrict__ x,
+                      const float* __restrict__ scale,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ lens,
+                      const float* __restrict__ q,
+                      const int* __restrict__ live,
+                      key_t64* __restrict__ partial, int* arrivals,
+                      int* __restrict__ out_ids, float* __restrict__ out_d,
+                      int n_pad, int d_pad, int n_valid, int tb, int w,
+                      int R, int k) {
+  constexpr int V = sizeof(T);      // 16-byte loads per lane per segment
+  constexpr int E = 16 / sizeof(T); // elements per 16-byte load
+  constexpr int U = 8 / sizeof(T);  // rows per group per step
+  extern __shared__ __align__(16) unsigned char smem[];
+  key_t64* bufs = reinterpret_cast<key_t64*>(smem);
+  key_t64* queues = bufs + NWARPS * 2 * k;
+  float4* qp = reinterpret_cast<float4*>(queues + NWARPS * QCAP);
+  float4* sp = qp + d_pad / 4;
+  __shared__ float qn_s;
+  __shared__ int cur[NWARPS];
+  __shared__ int last_s;
+
+  const int qi = blockIdx.x;
+  const int c = blockIdx.y;
+  const int S = gridDim.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane & 7;    // lane within its 8-lane group
+  const int grp = lane >> 3; // the group's row within each step
+
+  const long long start = starts[qi];
+  const long long len = lens[qi];
+  const long long base = (start / tb) * tb;
+  const long long lo_rank = base + (long long)c * R;
+  long long hi = start + len;
+  hi = min(hi, (long long)n_valid);
+  hi = min(hi, (long long)n_pad);
+  hi = min(hi, base + w);
+  hi = min(hi, lo_rank + R);
+  const long long lo = max(lo_rank, start);
+
+  WarpTopk top;
+  top.list = bufs + 2 * warp * k;
+  top.alt = top.list + k;
+  top.queue = queues + warp * QCAP;
+  top.k = k;
+  top.reset(lane);
+
+  const key_t64* res = bufs;  // warp 0's list: all pads for an empty chunk
+  if (lo < hi) {  // block-uniform
+    const float* qrow = q + (size_t)qi * d_pad;
+    for (int e4 = threadIdx.x; e4 < d_pad / 4; e4 += THREADS) {
+      // slot e4 = (segment * 4 + j) * 8 + lane-in-group
+      const int e = (e4 >> 5) * 128 + lane_elem<T>(e4 & 7, (e4 >> 3) & 3);
+      qp[e4] = *reinterpret_cast<const float4*>(qrow + e);
+      sp[e4] = scale != nullptr
+                   ? *reinterpret_cast<const float4*>(scale + e)
+                   : make_float4(1.f, 1.f, 1.f, 1.f);  // x * 1 == x
+    }
+    if (warp == 0) {
+      float s = 0.f;
+      for (int j = lane; j < d_pad; j += 32) s = fmaf(qrow[j], qrow[j], s);
+      s = warp_sum(s);
+      if (lane == 0) qn_s = s;
+    }
+    __syncthreads();
+    const float qn = qn_s;
+    const int nseg = d_pad >> 7;
+    const int first = (int)(lo - lo_rank), last = (int)(hi - lo_rank);
+    for (int t0 = warp * 4 * U; t0 < last; t0 += NWARPS * 4 * U) {
+      if (t0 + 4 * U <= first) continue;  // warp-uniform
+      const T* rp[U];
+      bool ok[U];
+      float dot[U], xn[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = t0 + 4 * u + grp;
+        ok[u] = r >= first && r < last;
+        if (ok[u] && live != nullptr) ok[u] = live[lo_rank + r] != 0;
+        rp[u] = x + (lo_rank + r) * (long long)d_pad;
+        dot[u] = 0.f;
+        xn[u] = 0.f;
+      }
+      for (int seg = 0; seg < nseg; ++seg) {
+        uint4 raw[U][V];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            raw[u][i] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(
+                                          rp[u] + seg * 128) + g + 8 * i)
+                              : make_uint4(0, 0, 0, 0);
+        float qf[16], sf[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 a = qp[(seg * 4 + j) * 8 + g];
+          const float4 b = sp[(seg * 4 + j) * 8 + g];
+          qf[4 * j] = a.x; qf[4 * j + 1] = a.y;
+          qf[4 * j + 2] = a.z; qf[4 * j + 3] = a.w;
+          sf[4 * j] = b.x; sf[4 * j + 1] = b.y;
+          sf[4 * j + 2] = b.z; sf[4 * j + 3] = b.w;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+#pragma unroll
+            for (int t = 0; t < E; ++t) {
+              // rounded as x * scale, apart from the sums
+              const float v = __fmul_rn(vec_elem<T>(raw[u][i], t),
+                                        sf[i * E + t]);
+              dot[u] = fmaf(qf[i * E + t], v, dot[u]);
+              xn[u] = fmaf(v, v, xn[u]);
+            }
+      }
+      if (top.qc > QCAP - 4 * U) top.flush(lane);  // warp-uniform
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) {
+          dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], o);
+          xn[u] += __shfl_xor_sync(0xffffffffu, xn[u], o);
+        }
+        float dist = (-2.f * dot[u] + qn) + xn[u];
+        dist = dist > 0.f ? dist : 0.f;  // clamp; also maps -0.0 to +0.0
+        const key_t64 key =
+            make_key(dist, (uint32_t)(lo_rank + t0 + 4 * u + grp));
+        top.push(ok[u] && g == 0 && key < top.thr, key, lane);
+      }
+    }
+    if (top.qc > 0) top.flush(lane);
+    if (lane == 0) cur[warp] = top.list == bufs + 2 * warp * k ? 0 : 1;
+    res = block_merge(bufs, cur, k, warp, lane);
+  }
+  __syncthreads();
+
+  int* oi = out_ids + (size_t)qi * k;
+  float* od = out_d + (size_t)qi * k;
+  if (S == 1) {
+    for (int i = threadIdx.x; i < k; i += THREADS)
+      emit(res[i], oi + i, od + i);
+    return;
+  }
+  key_t64* mine = partial + ((size_t)qi * S + c) * k;
+  for (int i = threadIdx.x; i < k; i += THREADS) mine[i] = res[i];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(arrivals + qi, 1) == S - 1;
+  __syncthreads();
+  if (!last_s) return;
+
+  // the last block of the query: fold the S sorted chunk lists
+  __threadfence();
+  top.list = bufs + 2 * warp * k;
+  top.alt = top.list + k;
+  top.reset(lane);
+  const key_t64* rows = partial + (size_t)qi * S * k;
+  for (int cc = warp; cc < S; cc += NWARPS) {
+    for (int off = 0; off < k; off += 32) {
+      const key_t64 key =
+          off + lane < k ? __ldcg(rows + (size_t)cc * k + off + lane)
+                         : KEY_NONE;
+      if (top.qc > QCAP - 32) top.flush(lane);
+      const bool pass = key < top.thr;
+      // a sorted list: past its first key that misses, all miss
+      if (__ballot_sync(0xffffffffu, pass) != 0xffffffffu) {
+        top.push(pass, key, lane);
+        break;
+      }
+      top.push(pass, key, lane);
+    }
+  }
+  if (top.qc > 0) top.flush(lane);
+  if (lane == 0) cur[warp] = top.list == bufs + 2 * warp * k ? 0 : 1;
+  res = block_merge(bufs, cur, k, warp, lane);
+  for (int i = threadIdx.x; i < k; i += THREADS) emit(res[i], oi + i, od + i);
+  if (threadIdx.x == 0) arrivals[qi] = 0;
+}
+
+// --- the two-pass path (k > 256) ----------------------------------------
 
 template <typename T>
 __global__ void range_scan_partial(const T* __restrict__ x,
@@ -177,24 +536,49 @@ __global__ void range_scan_emit(const key_t64* __restrict__ keys, int C,
        out_ids + (size_t)qi * k + i, out_d + (size_t)qi * k + i);
 }
 
+// The paths of range_scan_launch, as kernels/range_scan.py numbers them.
+enum { PATH_SELECT = 0, PATH_SMEM_MERGE = 1, PATH_RUN_MERGE = 2 };
+
 // x: (n_pad, d_pad) elements of `dtype` (DT_F32, DT_INT8 or DT_BF16);
-// scale: (d_pad,) f32 or null.  partial: (Q, S, kc) scratch, kc = min(k,
-// R).  For next_pow2(k) <= SMEM_K the wrapper picks R = max(1024,
-// next_pow2(k)) and S = ceil(w / R); past it R = SMEM_K and S =
-// next_pow2(ceil(w / R)), so kc = R and each row of S*R keys can be
-// bitonic-merged in place.  Returns the first CUDA error, 0 on success.
-extern "C" int range_scan_launch(const void* x, int dtype, const float* scale,
-                                 const int* starts, const int* lens,
-                                 const float* q, const int* live,
-                                 key_t64* partial, int* out_ids, float* out_d,
+// scale: (d_pad,) f32 or null; q, scale and x 16-byte aligned.  The wrapper
+// (kernels/range_scan.py::scan_plan) picks the path, R and S:
+//   PATH_SELECT: S chunks of R rows (a multiple of 128); partial: (Q, S, k)
+//     scratch; arrivals: (Q,) ints, 0 before the call and left 0 after it
+//     (both unused when S = 1);
+//   PATH_SMEM_MERGE: R a power of two >= k, S = ceil(w / R); partial:
+//     (Q, S, kc), kc = min(k, R), merged in a 2 * next_pow2(k)-key buffer;
+//   PATH_RUN_MERGE: R and S powers of two, kc = R, and each row of S*R
+//     keys is bitonic-merged in place.
+// Returns the first CUDA error, 0 on success.
+extern "C" int range_scan_launch(int path, const void* x, int dtype,
+                                 const float* scale, const int* starts,
+                                 const int* lens, const float* q,
+                                 const int* live, key_t64* partial,
+                                 int* arrivals, int* out_ids, float* out_d,
                                  int n_pad, int d_pad, int Q, int w, int k,
                                  int n_valid, int R, int S, void* stream) {
   const int tb = 128;
-  const int kc = k < R ? k : R;
   cudaStream_t st = (cudaStream_t)stream;
+  int rc = 0;
+  if (path == PATH_SELECT) {
+    const size_t smem = (size_t)NWARPS * (2 * k + QCAP) * sizeof(key_t64) +
+                        (size_t)2 * d_pad * sizeof(float);
+    DISPATCH_CORPUS(dtype, T, {
+      rc = set_smem((const void*)range_scan_select<T>, smem);
+      if (rc) return rc;
+      range_scan_select<T><<<dim3(Q, S), THREADS, smem, st>>>(
+          static_cast<const T*>(x), scale, starts, lens, q, live, partial,
+          arrivals, out_ids, out_d, n_pad, d_pad, n_valid, tb, w, R, k);
+    });
+    return (int)cudaGetLastError();
+  }
+  // the bitonic networks below need pow2 sizes
+  if ((path != PATH_SMEM_MERGE && path != PATH_RUN_MERGE) || (R & (R - 1)) ||
+      (path == PATH_RUN_MERGE && (S & (S - 1))))
+    return (int)cudaErrorInvalidValue;
+  const int kc = k < R ? k : R;
   const size_t smem1 = (size_t)R * sizeof(key_t64) +
                        (size_t)d_pad * sizeof(float) * (scale ? 2 : 1);
-  int rc = 0;
   DISPATCH_CORPUS(dtype, T, {
     rc = set_smem((const void*)range_scan_partial<T>, smem1);
     if (rc) return rc;
@@ -204,8 +588,8 @@ extern "C" int range_scan_launch(const void* x, int dtype, const float* scale,
   });
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int P = next_pow2_host(k);
-  if (P <= SMEM_K) {
+  if (path == PATH_SMEM_MERGE) {
+    const int P = next_pow2_host(k);
     const int SZ = 2 * P > 1024 ? 2 * P : 1024;
     size_t smem2 = (size_t)SZ * sizeof(key_t64);
     rc = set_smem((const void*)range_scan_merge, smem2);

@@ -76,11 +76,32 @@ static inline int next_pow2_host(int x) {
   return p;
 }
 
-// Opts a kernel into more than 48 KB of dynamic shared memory.
+// Opts a kernel into more than 48 KB of dynamic shared memory.  The
+// attribute stays set for the kernel on its device, so
+// cudaFuncSetAttribute runs once per (kernel, device) and again only for
+// a larger size.
 static int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
+  enum { SLOTS = 64 };
+  static const void* fns[SLOTS];
+  static int devs[SLOTS];
+  static size_t done[SLOTS];
+  static int used = 0;
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  int slot = 0;
+  while (slot < used && (fns[slot] != fn || devs[slot] != dev)) ++slot;
+  if (slot < used && done[slot] >= bytes) return 0;
+  rc = (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc == 0 && slot < SLOTS) {
+    fns[slot] = fn;
+    devs[slot] = dev;
+    done[slot] = bytes;
+    if (slot == used) ++used;
+  }
+  return rc;
 }
 
 #define MERGE_THREADS 256

@@ -37,9 +37,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points of each library, with their argument types
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "range_scan": {
-        # x, dtype, scale, starts, lens, q, live, partial, out_ids, out_d,
-        # n_pad, d_pad, Q, w, k, n_valid, R, S, stream
-        "range_scan_launch": [_P, _I] + [_P] * 8 + [_I] * 8 + [_P],
+        # path, x, dtype, scale, starts, lens, q, live, partial, arrivals,
+        # out_ids, out_d, n_pad, d_pad, Q, w, k, n_valid, R, S, stream
+        "range_scan_launch": [_I, _P, _I] + [_P] * 9 + [_I] * 8 + [_P],
     },
     "gather_dist": {
         # x, dtype, scale, ids, q, out, N, d, Q, M, stream

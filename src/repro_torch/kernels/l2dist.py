@@ -12,10 +12,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: query rows one block owns; the grid's y extent caps Q at 65535 tiles
-TILE_Q = 64
-MAX_Q = 65535 * TILE_Q
-
 
 def l2dist_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q (Q, d) and x (N, d), both float32
@@ -31,8 +27,6 @@ def l2dist_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("l2dist: q and x must share one device")
     nq, d = q.shape
     n = x.shape[0]
-    if nq > MAX_Q:
-        raise ValueError(f"l2dist: Q={nq} exceeds {MAX_Q} rows; split q")
     out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out

@@ -55,7 +55,8 @@ def _tile(m: int, cap: int = 128) -> int:
 
 def l2dist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q,d) × (N,d) -> (Q,N) squared L2 in the expansion form, f32 sums,
-    clamped at 0; q and x f32 or bf16 (both of one dtype on the card)."""
+    clamped at 0; q and x f32 or bf16 (both of one dtype on the card);
+    any Q, N and d."""
     if q.device.type == "cpu":
         return ref.l2dist_ref(q, x)
     from repro_torch.kernels.l2dist import l2dist_cuda

@@ -15,12 +15,30 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: rows one block of the scan's first pass owns (it sorts R keys in shared
+#: the launcher's paths (``PATH_*`` in the kernel source), chosen here only:
+#: one launch with per-warp threshold lists whose last block per query
+#: merges the chunks; two passes with the merge in shared memory; two
+#: passes with whole sorted runs merged in global memory
+PATH_SELECT, PATH_SMEM_MERGE, PATH_RUN_MERGE = 0, 1, 2
+#: largest k of the select path
+SELECT_K = 256
+#: bytes of rows one block of the select path reads (512 f32 rows at
+#: d_pad = 128, 1024 bf16, 2048 int8: each block's fixed cost, its merges,
+#: stays small beside its loads), until a window would need more than
+#: SELECT_CHUNKS blocks
+SELECT_BYTES = 256 * 1024
+SELECT_CHUNKS = 32
+#: rows one block of the two-pass path owns (it sorts R keys in shared
 #: memory); raised to next_pow2(k) when k is larger
 ROWS_PER_BLOCK = 1024
 #: largest next_pow2(k) merged in shared memory (2·next_pow2(k) keys);
-#: a larger k is merged in global memory (``SMEM_K`` in the kernel source)
+#: a larger k is merged in global memory
 SMEM_K = 2048
+
+#: per-(device, stream) arrival counters of the select path: zero before
+#: each launch, and the kernel's last block of each query sets its counter
+#: back to zero
+_ARRIVALS: dict = {}
 
 
 def window_rows(bucket: int, tb: int = 128) -> int:
@@ -30,6 +48,39 @@ def window_rows(bucket: int, tb: int = 128) -> int:
     return (-(-bucket // tb) + 1) * tb
 
 
+def scan_plan(w: int, k: int, row_bytes: int):
+    """(path, R, S, kc): the launcher's path, window rows per block, blocks
+    per query and keys each block leaves in the (Q, S, kc) scratch, for a
+    window of w rows of ``row_bytes`` bytes each.
+
+    k <= SELECT_K, PATH_SELECT: as many chunks as SELECT_BYTES of rows each needs, at
+    most SELECT_CHUNKS, evened out to ceil(w / S) rows rounded up to 128;
+    one chunk needs no scratch (kc = 0).  Else two passes: R = max(1024,
+    next_pow2(k)) rows over ceil(w / R) blocks while next_pow2(k) <= SMEM_K
+    (PATH_SMEM_MERGE); past it whole sorted chunks of SMEM_K rows, a pow2
+    number of them, merged in place (PATH_RUN_MERGE)."""
+    p = 1 << (k - 1).bit_length()
+    if k <= SELECT_K:
+        rows = max(128, SELECT_BYTES // row_bytes // 128 * 128)
+        s = min(-(-w // rows), SELECT_CHUNKS)
+        r = -(-(-(-w // s)) // 128) * 128
+        s = -(-w // r)
+        return PATH_SELECT, r, s, (k if s > 1 else 0)
+    if p <= SMEM_K:
+        r = max(ROWS_PER_BLOCK, p)
+        return PATH_SMEM_MERGE, r, -(-w // r), min(k, r)
+    r = SMEM_K
+    return PATH_RUN_MERGE, r, 1 << (-(-w // r) - 1).bit_length(), r
+
+
+def _arrivals(dev: torch.device, stream: int, nq: int) -> torch.Tensor:
+    buf = _ARRIVALS.get((dev, stream))
+    if buf is None or buf.numel() < nq:
+        buf = torch.zeros(max(nq, 256), dtype=torch.int32, device=dev)
+        _ARRIVALS[(dev, stream)] = buf
+    return buf
+
+
 def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, q: torch.Tensor, *, bucket: int,
                     k: int, n_valid: int = 0,
@@ -37,10 +88,11 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
                     scale: torch.Tensor | None = None):
     """Launch the scan on CUDA tensors.  x:(n_pad, d_pad) f32, int8 or bf16
     with n_pad % 128 == 0 and d_pad % 128 == 0; ``scale``: (d_pad,) f32 or
-    None; starts/lens:(Q,); q:(Q, d_pad) f32; ``live``: (1, n_pad) or
-    (n_pad,), 0 = masked.  Returns (ids:(Q,k) i32 ranks (-1 pad),
-    dists:(Q,k) f32 (+inf pad)).  Raises on inputs the kernel does not take
-    and on a failed launch."""
+    None; starts/lens:(Q,) (int32 costs no conversion); q:(Q, d_pad) f32;
+    ``live``: (1, n_pad) or (n_pad,), 0 = masked.  Returns (ids:(Q,k) i32
+    ranks (-1 pad), dists:(Q,k) f32 (+inf pad)).  Raises on inputs the
+    kernel does not take and on a failed launch.  For k <= SELECT_K it is
+    one kernel launch."""
     n_pad, d_pad = x.shape
     nq = q.shape[0]
     if q.dtype != torch.float32:
@@ -58,19 +110,16 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
     if nq == 0:
         return ids, dists
     w = window_rows(bucket)
-    p = 1 << (k - 1).bit_length()
-    if p <= SMEM_K:
-        r = max(ROWS_PER_BLOCK, p)
-        s = -(-w // r)
-    else:       # whole sorted chunks, a pow2 number of them, merged in place
-        r = SMEM_K
-        s = 1 << (-(-w // r) - 1).bit_length()
-    partial = torch.empty((nq, s, min(k, r)), dtype=torch.int64, device=dev)
+    path, r, s, kc = scan_plan(w, k, d_pad * x.element_size())
+    partial = (torch.empty((nq, s, kc), dtype=torch.int64, device=dev)
+               if kc else None)
     x, code, scale = _build.corpus_operands(x, scale, "range_scan")
-    if x.data_ptr() % 16:
-        raise ValueError("range_scan: x must start on a 16-byte boundary "
-                         "(rows are read with vector loads)")
     q = q.contiguous()
+    if (x.data_ptr() | q.data_ptr()
+            | (0 if scale is None else scale.data_ptr())) % 16:
+        raise ValueError("range_scan: x, q and scale must start on a "
+                         "16-byte boundary (they are read with vector "
+                         "loads)")
     starts = starts.to(device=dev, dtype=torch.int32).contiguous()
     lens = lens.to(device=dev, dtype=torch.int32).contiguous()
     if live is not None:
@@ -78,13 +127,15 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
         if live.numel() != n_pad:
             raise ValueError(f"range_scan: live has {live.numel()} entries, "
                              f"x has {n_pad} rows")
-    lib = _build.library("range_scan")
-    rc = lib.range_scan_launch(
-        x.data_ptr(), code, None if scale is None else scale.data_ptr(),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    arrivals = _arrivals(dev, stream, nq) if path == PATH_SELECT else None
+    rc = _build.library("range_scan").range_scan_launch(
+        path, x.data_ptr(), code, None if scale is None else scale.data_ptr(),
         starts.data_ptr(), lens.data_ptr(), q.data_ptr(),
-        None if live is None else live.data_ptr(), partial.data_ptr(),
+        None if live is None else live.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
         ids.data_ptr(), dists.data_ptr(), n_pad, d_pad, nq, w, k,
-        int(n_valid) or n_pad, r, s,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(n_valid) or n_pad, r, s, stream)
     _build.check(rc, "range_scan")
     return ids, dists

@@ -215,6 +215,150 @@ def test_l2dist_kernel_matches_plain(cuda, q, n, d, dtype):
     assert bool((got >= 0).all())
 
 
+def _scan_case(cuda, precision, bucket, seed):
+    """A 9,000-row corpus (rows 1000-1099 copies of 900-999) in the given
+    precision, 16 windows of bucket/2 .. bucket rows (one empty, a one-row
+    tail, an unaligned start, one over the copies), int32 starts and
+    lengths as the search path passes them, and a 70 % live mask."""
+    rng = np.random.default_rng(seed)
+    n, q = 9000, 16
+    x = torch.zeros((9088, 128), device=cuda)
+    x[:n] = torch.as_tensor(rng.standard_normal((n, 128)) * 3, device=cuda,
+                            dtype=torch.float32)
+    x[1000:1100] = x[900:1000]
+    data, scale = (x, None) if precision == "f32" else _quantized(x,
+                                                                   precision)
+    starts = rng.integers(0, n, q).astype(np.int32)
+    lens = rng.integers(bucket // 2, bucket + 1, q).astype(np.int32)
+    lens[0] = 0
+    starts[1], lens[1] = n - 1, 1
+    starts[2] = 128 * 7 + 37
+    starts[3], lens[3] = 880, min(bucket, 300)
+    qv = torch.as_tensor(rng.standard_normal((q, 128)), device=cuda,
+                         dtype=torch.float32)
+    qv[3] = x[950]
+    live = torch.as_tensor(rng.random((1, 9088)) < 0.7, device=cuda).int()
+    return (data, torch.as_tensor(starts, device=cuda),
+            torch.as_tensor(lens, device=cuda), qv, scale, live, n)
+
+
+@pytest.mark.parametrize("bucket", [64, 2048, 16384])
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 256, 257, 2048, 4096, 5000])
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16"])
+def test_range_scan_every_regime_matches_plain(cuda, precision, k, bucket):
+    """One chunk, many chunks merged by the last block, and the two-pass
+    paths past k = 256, with n_valid and live; exact ties (the copied rows)
+    go to the lower rank."""
+    data, st, ln, qv, scale, live, n = _scan_case(cuda, precision, bucket,
+                                                  k + bucket)
+    atol = 1e-2 if precision == "f32" else 0.1
+    for kw in ({"n_valid": n - 37}, {"live": live, "n_valid": n}):
+        got = ops.range_scan(data, st, ln, qv, bucket=bucket, k=k,
+                             scale=scale, **kw)
+        want = ref.range_scan_ref(data, st, ln, qv, bucket=bucket, k=k,
+                                  scale=scale, **kw)
+        _same(got, want, atol=atol)
+        if kw.get("live") is None and k >= 2 and bucket >= 300:
+            gi, gd = (t.cpu().numpy() for t in got)
+            assert gi[3, 0] == 950 and gi[3, 1] == 1050
+            assert gd[3, 0] == gd[3, 1]
+
+
+@pytest.mark.parametrize("bucket,k", [(64, 10), (8192, 10), (8192, 128),
+                                      (131072, 10), (65536, 256)])
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16"])
+def test_range_scan_is_one_launch(cuda, precision, bucket, k):
+    """For k <= 256 a call is one device launch (torch.profiler: one kernel
+    name, range_scan_select, and no more launches than calls; the profiler
+    may drop events, never add them), with no sort of a whole chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(bucket + k)
+    n = 200_064
+    x = torch.as_tensor(rng.standard_normal((n, 128)), device=cuda,
+                        dtype=torch.float32)
+    data, scale = (x, None) if precision == "f32" else _quantized(x,
+                                                                   precision)
+    starts = torch.as_tensor(rng.integers(0, n - bucket, 64), device=cuda,
+                             dtype=torch.int32)
+    lens = torch.full((64,), bucket, device=cuda, dtype=torch.int32)
+    qv = torch.as_tensor(rng.standard_normal((64, 128)), device=cuda,
+                         dtype=torch.float32)
+    call = lambda: ops.range_scan(data, starts, lens, qv, bucket=bucket, k=k,
+                                  scale=scale)
+    _same(call(), ref.range_scan_ref(data, starts, lens, qv, bucket=bucket,
+                                     k=k, scale=scale),
+          atol=1e-2 if precision == "f32" else 0.1)
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in p.key_averages()
+           if e.device_type == DeviceType.CUDA and e.count]
+    assert len(dev) == 1 and "range_scan_select" in dev[0].key, \
+        [e.key for e in dev]
+    assert 1 <= dev[0].count <= calls
+
+
+@pytest.mark.parametrize("d", [1, 3, 127, 130, 515])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2dist_ragged_tiles_match_plain(cuda, d, dtype):
+    """Q and N in {1, 127, 129, 4097} around the 128 x 128 tile at every d:
+    the reference test's tolerance, never negative."""
+    rng = np.random.default_rng(d)
+    tol = (1e-3 if dtype == torch.float32 else 0.15) * max(1.0, d / 64)
+    for q in (1, 127, 129, 4097):
+        for n in (1, 127, 129, 4097):
+            a = torch.as_tensor(rng.standard_normal((q, d)),
+                                device=cuda).to(dtype)
+            b = torch.as_tensor(rng.standard_normal((n, d)),
+                                device=cuda).to(dtype)
+            got = ops.l2dist(a, b)
+            assert got.shape == (q, n)
+            err = float((got - ref.l2dist_ref(a, b)).abs().max())
+            assert err < tol, (q, n, d, err)
+            assert bool((got >= 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2dist_misaligned_views_match_plain(cuda, dtype):
+    """Views that start off a 16-byte boundary take the kernel's scalar
+    loads: ``x[1:]`` of a d = 3 tensor, and d = 128 rows one element into
+    a flat buffer."""
+    rng = np.random.default_rng(1)
+    for d, q, n in ((3, 300, 1000), (128, 200, 700)):
+        qa = torch.as_tensor(rng.standard_normal(q * d + 1),
+                             device=cuda).to(dtype)[1:].view(q, d)
+        xa = torch.as_tensor(rng.standard_normal((n + 1, d)),
+                             device=cuda).to(dtype)[1:]
+        if d % 4 == 0:
+            assert qa.data_ptr() % 16 and xa.data_ptr() % 16 == 0
+        got = ops.l2dist(qa, xa)
+        tol = (1e-3 if dtype == torch.float32 else 0.15) * max(1.0, d / 64)
+        assert float((got - ref.l2dist_ref(qa, xa)).abs().max()) < tol
+
+
+def test_l2dist_past_one_grid_of_tiles(cuda):
+    """N past 65,535 column tiles of 128 (the grid's y extent) takes a
+    second launch for the rest: every column still matches the plain
+    version, the last tile's ragged edge included; one counted call."""
+    n = 65535 * 128 + 300
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.standard_normal((3, 5)), device=cuda,
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((n, 5)), device=cuda,
+                        dtype=torch.float32)
+    ops.reset_launches()
+    got = ops.l2dist(a, b)
+    assert ops.LAUNCHES["l2dist.f32"] == 1
+    assert got.shape == (3, n)
+    assert float((got - ref.l2dist_ref(a, b)).abs().max()) < 1e-3
+    assert bool((got >= 0).all())
+
+
 def test_baselines_end_to_end_on_card(cuda):
     """The benchmark's five methods built on the card: the segment tree's
     block KNN launches l2dist, no baseline launches a gather kernel, and

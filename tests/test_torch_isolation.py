@@ -16,6 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 #: the port's scripts and benchmark driver, which stand alone like it
 SCRIPTS = [ROOT / "benchmarks" / "run_torch.py",
            ROOT / "benchmarks" / "common_torch.py",
+           ROOT / "benchmarks" / "hop_profile_torch.py",
+           ROOT / "benchmarks" / "kernel_profile_torch.py",
            ROOT / "chip_smoke.py", ROOT / "ab_qps.py"]
 
 
