@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Paired f32 QPS of two source trees of the PyTorch/CUDA port on one card.
+"""Paired QPS of two source trees of the PyTorch/CUDA port on one card.
 
     python3 ab_qps.py --a OLD/src --b src            # 1M x 128, 5 rounds
+    python3 ab_qps.py --a OLD/src --precision int8   # the int8 paths
 
 Each tree gets a worker process that imports ``repro_torch`` from its
 ``src`` directory, builds the same index as ``chip_smoke.py``'s full phase
@@ -12,12 +13,16 @@ f32 part of ``chip_smoke.py``'s full phase: ``--nq`` queries in batches of
 64 through ``RNSGIndex.search(plan="auto", k=10, ef=64)`` at (bw 1,
 plain), (bw 1, kernels), (bw 4, plain), (bw 4, kernels), every path of a
 batch planned from the same calibration state, the planner reset to its
-post-build state at the start of each pass.
+post-build state at the start of each pass.  ``--precision int8|bf16``
+installs that quantized copy after the build (untimed) and searches with
+``precision=`` (the quantized scan or beam, then the f32 rerank); the
+default, f32, is the f32 part of the full phase.
 
 Prints each pass's QPS per path, then per path the median QPS of each tree,
 the ratio B/A, whether the two trees returned the same ids, and the scan
 share; the last line is one JSON object with all of it (also written to
-``chiprun_out/ab_qps.json``).  Needs one CUDA card.
+``chiprun_out/ab_qps.json``, or ``ab_qps-<precision>.json`` for a quantized
+precision).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ def _send(obj) -> None:
 
 
 def worker(src: str, n: int, nq: int, seed: int, batch: int,
-           device: str) -> int:
+           device: str, precision: str) -> int:
     sys.path.insert(0, str(Path(src).resolve()))
     from repro_torch.core.rfann import RNSGIndex
     from repro_torch.data.ann import (ground_truth, make_attrs, make_vectors,
@@ -56,6 +61,8 @@ def worker(src: str, n: int, nq: int, seed: int, batch: int,
     idx = RNSGIndex.build(base, attrs, m=32, ef_spatial=32, ef_attribute=48,
                           device=device)
     gt, _ = ground_truth(base, attrs, qv, ranges, 10, device=device)
+    if precision != "f32":
+        idx.install_quantized(precision)
     planner = idx.planner
     built = json.dumps(planner.cost.state_dict())
     _send(dict(ready=True, package=str(Path(repro_torch.__file__).parent),
@@ -77,7 +84,8 @@ def worker(src: str, n: int, nq: int, seed: int, batch: int,
                 ops.reset_launches()
                 t1 = time.perf_counter()
                 res = idx.search(q_b, r_b, k=10, ef=64, plan="auto",
-                                 beam_width=bw, use_kernel=uk)
+                                 beam_width=bw, use_kernel=uk,
+                                 precision=precision)
                 secs[name] += time.perf_counter() - t1
                 for kern, c in ops.LAUNCHES.items():
                     kern = kern.split(".")[0]     # summed over the dtypes
@@ -106,7 +114,7 @@ class Worker:
         self.proc = subprocess.Popen(
             [sys.executable, __file__, "--worker", src, "--n", str(args.n),
              "--nq", str(args.nq), "--seed", str(args.seed),
-             "--device", args.device],
+             "--device", args.device, "--precision", args.precision],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
 
     def read(self):
@@ -144,10 +152,13 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses the protocol at a small --n")
+    ap.add_argument("--precision", default="f32",
+                    choices=("f32", "int8", "bf16"),
+                    help="the scoring precision of every path")
     args = ap.parse_args()
     if args.worker:
         return worker(args.worker, args.n, args.nq, args.seed, 64,
-                      args.device)
+                      args.device, args.precision)
 
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -204,11 +215,13 @@ def main() -> int:
               f"{s['recall_a']:.4f}/{s['recall_b']:.4f}  scan share "
               f"{s['scan_share_a']:.3f}/{s['scan_share_b']:.3f}")
     result = dict(card=card, a=args.a, b=args.b, n=args.n, nq=args.nq,
-                  order=order, seconds=time.perf_counter() - t0,
-                  paths=summary)
+                  precision=args.precision, order=order,
+                  seconds=time.perf_counter() - t0, paths=summary)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "ab_qps.json").write_text(json.dumps(result, indent=1))
+    name = ("ab_qps.json" if args.precision == "f32"
+            else f"ab_qps-{args.precision}.json")
+    (out / name).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Per-call time of the scan and distance kernels on the card, split three
-ways.
+"""Per-call time of the scan, rerank and distance kernels on the card, split
+three ways.
 
     python3 benchmarks/kernel_profile_torch.py [--src DIR] [--tag NAME]
-        [--only range_scan,l2dist] [--segtree N]
+        [--only range_scan,l2dist,gather_rerank] [--segtree N]
 
 Imports ``repro_torch`` from ``--src`` (default: this tree's ``src``), so
 the same script reads a parent tree unpacked beside this one.  Shapes:
@@ -15,6 +15,12 @@ the same script reads a parent tree unpacked beside this one.  Shapes:
   them): f32 at k=10 over buckets 64 .. 131072, and the int8
   (with its scale) and bf16 copies at k=10 and k=128 over buckets 512,
   8192 and 65536;
+* ``ops.gather_rerank`` and the whole ``core.beam.rerank_pool`` (the
+  quantized paths' rerank stage, with ``use_kernel``) on the same
+  corpus, unpadded, with 64 queries at d = 128: M in {64, 128, 512, 4096,
+  30000} survivor ids per query (10 % masked, one all-masked row, int32
+  as the search path passes them) and k in {10, 128, 200, 3000}, each with
+  the ids sorted ascending (``sort_candidates``) and unsorted;
 * ``ops.l2dist`` in f32 at the segment-tree build's top tile (4096 ×
   100,000 × 128), at 1024 × 262,144 × 128 and at the microbench shapes
   128 × 1024 and 256 × 4096 (d = 128), with ``torch.cdist`` (matmul path,
@@ -29,11 +35,13 @@ it prints the median CUDA-event time per call over REPS calls, the
 wrapper's host time per call (the host clock from the call to its return,
 the device idle before it), and, from ``torch.profiler`` over PROF_CALLS
 calls, the device launches per call and each kernel's own device time per
-call; beside them the bound (the larger of bytes over 3.35 TB/s and flops
-over 67 TFLOP/s).  The profiler readings come last, after every timing
-and the segment tree's builds, and the lines print then.  Timing,
-profiling and bounds are ``chip_smoke.py``'s own helpers.  The last line is one JSON object, also written to
-``chiprun_out/kernel_profile[-TAG].json``.  Needs one CUDA card.
+call (read again, up to three times, where a session dropped every event);
+beside them the bound (the larger of bytes over 3.35 TB/s and flops over
+67 TFLOP/s).  The profiler readings come last, after every timing and the
+segment tree's builds, and the lines print then.  Timing, profiling and
+bounds are ``chip_smoke.py``'s own helpers.  The last line is one JSON
+object, also written to ``chiprun_out/kernel_profile[-TAG].json``.  Needs
+one CUDA card.
 """
 from __future__ import annotations
 
@@ -57,6 +65,11 @@ SCAN_F32_BUCKETS = [1 << i for i in range(6, 18)]          # 64 .. 131072
 SCAN_QUANT_BUCKETS = (512, 8192, 65536)
 L2_SHAPES = [(4096, 100_000, 128), (1024, 262_144, 128), (128, 1024, 128),
              (256, 4096, 128)]
+RERANK_M = (64, 128, 512, 4096, 30000)
+RERANK_K = (10, 128, 200, 3000)
+#: the kernel library each --only name rebuilds
+LIBRARY = {"range_scan": "range_scan", "l2dist": "l2dist",
+           "gather_rerank": "gather_dist"}
 
 
 def measure(fn, reps: int = REPS):
@@ -81,10 +94,13 @@ def read_device(recs, calls) -> None:
     timing of the run: a profiler session slows every later host-side
     torch op of the process (``chip_smoke._DEVICE_PROBES``)."""
     for rec, fn in zip(recs, calls):
-        _, rec["launches_per_call"], rec["device_ms"] = _device_ms(
-            fn, PROF_CALLS)
+        for _ in range(3):      # a session may drop all of its events
+            _, rec["launches_per_call"], rec["device_ms"] = _device_ms(
+                fn, PROF_CALLS)
+            if rec["launches_per_call"]:
+                break
         rec["device_total_ms"] = sum(rec["device_ms"].values())
-        _line("scan" if rec["kernel"] == "range_scan" else "l2", rec)
+        _line(rec["kernel"], rec)
 
 
 def _line(tag, rec):
@@ -147,6 +163,44 @@ def profile_scan(ops, quantize_corpus):
                    rows=rows)
         recs.append(rec)
         calls.append(fn)
+    return recs, calls
+
+
+def profile_rerank(ops, rerank_pool, sort_candidates):
+    import torch
+    from repro_torch.data.ann import make_vectors
+    dev = torch.device("cuda")
+    vecs = torch.as_tensor(make_vectors(N, 128, seed=SEED + 2), device=dev)
+    nq, d = 64, vecs.shape[1]
+    rng = np.random.default_rng(SEED + 202)
+    q = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32)
+                        * 4.0, device=dev)
+    recs, calls = [], []
+    for m in RERANK_M:
+        raw = rng.integers(0, N, (nq, m))
+        raw[rng.random((nq, m)) < 0.1] = -1
+        raw[0] = -1                                     # all-masked row
+        valid = raw[raw >= 0]
+        rows = len(np.unique(valid))
+        unsorted = torch.as_tensor(raw.astype(np.int32), device=dev)
+        orders = {"unsorted": unsorted, "sorted": sort_candidates(unsorted)}
+        for k in RERANK_K:
+            bound, by = _bound(rows * d * 4 + nq * m * 4 + q.numel() * 4
+                               + nq * k * 8, float(valid.size) * d * 3)
+            for order, ids in orders.items():
+                for what, fn in (
+                        ("gather_rerank", functools.partial(
+                            ops.gather_rerank, vecs, ids, q, k=k)),
+                        ("rerank_pool", functools.partial(
+                            rerank_pool, vecs, ids, q, k, True))):
+                    ms, host = measure(fn, REPS // 4 if m * k > 1 << 24
+                                       else REPS)
+                    recs.append(dict(
+                        kernel=what, dtype="f32", m=m, k=k, q=nq,
+                        order=order, shape=f"{what} q={nq} m={m} k={k} "
+                        f"d={d} {order}", ms=ms, host_ms=host,
+                        bound_ms=bound, bound_by=by, rows=rows))
+                    calls.append(fn)
     return recs, calls
 
 
@@ -223,7 +277,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", default="range_scan,l2dist",
-                    help="kernels to profile (empty: none)")
+                    help="kernels to profile, of range_scan, l2dist and "
+                         "gather_rerank (empty: none)")
     ap.add_argument("--segtree", type=int, default=0,
                     help="also build the benchmark's segment tree at this "
                          "many rows and time its l2dist calls")
@@ -233,16 +288,19 @@ def main() -> int:
         print("kernel_profile: no CUDA device is present", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.core.beam import rerank_pool
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.quantize import quantize_corpus
+    from repro_torch.kernels.quantize import quantize_corpus, sort_candidates
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(card)
     print(f"[profile] package {Path(ops.__file__).parents[1]} torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
-    only = set(args.only.split(","))
-    names = [k for k in ("range_scan", "l2dist") if k in only]
+    only = set(filter(None, args.only.split(",")))
+    if only - set(LIBRARY):
+        ap.error(f"--only: unknown kernels {sorted(only - set(LIBRARY))}")
+    names = [LIBRARY[k] for k in LIBRARY if k in only]
     if args.segtree and "l2dist" not in names:
         names.append("l2dist")
     for name in names:
@@ -258,7 +316,9 @@ def main() -> int:
                   records=[])
     calls = []
     for kernel, run in (("range_scan", lambda: profile_scan(
-            ops, quantize_corpus)), ("l2dist", lambda: profile_l2(ops))):
+            ops, quantize_corpus)), ("l2dist", lambda: profile_l2(ops)),
+            ("gather_rerank", lambda: profile_rerank(
+                ops, rerank_pool, sort_candidates))):
         if kernel in only:
             recs, fns = run()
             result["records"] += recs

@@ -13,7 +13,8 @@ Phases, each printing its lines:
              CUDA-event times, the byte/flop bound and the plain time: the
              f32 kernels, then the int8/bf16 corpora (quantized on the card
              and bit-equal to the CPU's quantization) through range_scan,
-             gather_dist and gather_topk, and the f32 rerank gather_rerank;
+             gather_dist and gather_topk, and the f32 rerank gather_rerank
+             (fed unsorted ids, duplicates included, k 1 .. 3000);
    then l2dist against its plain version at the reference test's shapes,
    the benchmark's and (1024, 262144, 128), in f32 and bf16, and at every
    shape the bench phase's segment-tree build gives it (f32; timed at its
@@ -68,7 +69,8 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-8. device times — range_scan's and l2dist's timed parity shapes again,
+8. device times — range_scan's, gather_rerank's and l2dist's timed parity
+             shapes again,
              under torch.profiler: device time and device launches per
              call (last, because a profiler session slows the host-side
              torch ops of every later phase);
@@ -395,7 +397,6 @@ def phase_parity_quant(x_pad, vecs, n, seed):
     returns {kernel: {dtype: record}} and the rerank records."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.quantize import sort_candidates
     dev = x_pad.device
     rng = np.random.default_rng(seed + 202)
     d_pad, d = x_pad.shape[1], vecs.shape[1]
@@ -511,32 +512,39 @@ def phase_parity_quant(x_pad, vecs, n, seed):
 
     rr = []
     for m, k, timed in ((128, 10, True), (64, 10, True), (4096, 10, True),
-                        (4096, 200, True), (5, 8, False),
+                        (4096, 200, True), (5, 8, False), (1, 1, False),
+                        (128, 1, False), (512, 256, False),
+                        (300, 257, False), (30000, 10, False),
                         (30000, 128, False), (9000, 3000, False)):
-        ids = torch.as_tensor(rng.integers(0, n, (nq, m)), device=dev)
-        ids = torch.where(torch.as_tensor(rng.random((nq, m)) < 0.1,
-                                          device=dev), -1, ids)
+        # unsorted, as the search path hands them over, with duplicates
+        # and one id >= n (scored as row n - 1, keeping its own id)
+        ids = rng.integers(0, n, (nq, m))
+        ids[rng.random((nq, m)) < 0.1] = -1
         ids[0] = -1                                     # all-masked row
-        ids = sort_candidates(ids)
-        run_k = lambda: ops.gather_rerank(vecs, ids, q, k=k)
-        run_p = lambda: ref.gather_rerank_ref(vecs, ids, q, k=k)
+        ids[1, : m // 2] = ids[1, m // 2: 2 * (m // 2)]  # duplicate ids
+        ids[2, 0] = n + 3
+        ids = torch.as_tensor(ids.astype(np.int32), device=dev)
+        run_k = functools.partial(ops.gather_rerank, vecs, ids, q, k=k)
+        run_p = functools.partial(ref.gather_rerank_ref, vecs, ids, q, k=k)
         err = _compare(f"gather_rerank m={m} k={k}", run_k(), run_p(), atol)
         if not timed:
             continue
         valid = ids.cpu().numpy()
-        rows = len(np.unique(valid[valid >= 0]))
+        rows = len(np.unique(np.minimum(valid[valid >= 0], n - 1)))
         rec = dict(q=nq, m=m, k=k, ms=_time_ms(run_k, 50),
                    plain_ms=_time_ms(run_p, 20), max_abs_err=err)
         rec["bound_ms"], rec["bound_by"] = _bound(
             rows * d * 4 + nq * m * 4 + q.numel() * 4 + nq * k * 8,
             int((valid >= 0).sum()) * d * 3)
         rr.append(rec)
+        _device_probe(rec, run_k, f"gather_rerank q={nq} m={m} k={k}")
         print(f"[parity] gather_rerank q={nq} m={m} k={k} d={d} ok "
               f"err={err:.3g} ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']})")
-    print("[parity] gather_rerank edges ok (all-masked row, M<k, M=30000 "
-          "past one tile, k=3000 merged in global memory)")
+    print("[parity] gather_rerank edges ok (unsorted ids with duplicates and "
+          "an id >= n, all-masked row, M<k, k=1/256/257, M=30000 over many "
+          "blocks, k=3000 merged in global memory)")
     return recs, rr
 
 
@@ -1324,7 +1332,10 @@ def main() -> int:
              variants=variants("gather_topk", "bw4_kernel",
                                lambda r: dict(r,
                                               shape="q=64 m=128 k=64 d=128"))),
-        dict(name="gather_rerank", route="cuda", state="ported",
+        dict(name="gather_rerank", route="cuda",
+             state="redesigned: one launch for k <= 256 (per-warp "
+                   "threshold lists over gathered rows, ties keyed by id, "
+                   "last-arrival merge)",
              source="src/repro_torch/csrc/gather_dist.cu",
              replaces="src/repro/kernels/gather_dist.py:260",
              launches=la["int8_bw1_kernel"]["gather_rerank"],
@@ -1336,7 +1347,10 @@ def main() -> int:
              ms=rr_main["ms"], plain_ms=rr_main["plain_ms"],
              bound_ms=rr_main["bound_ms"], bound_by=rr_main["bound_by"],
              library_ms=None, parity_ok=True,
-             shape="q=64 m=128 k=10 d=128 (the scan's survivors)",
+             device_ms=rr_main["device_ms"],
+             launches_per_call=rr_main["launches_per_call"],
+             shape="q=64 m=128 k=10 d=128 (the scan's survivors, "
+                   "unsorted)",
              other_shapes=[dict(r, shape=f"q=64 m={r['m']} k={r['k']} d=128")
                            for r in rr if r is not rr_main]),
     ]

@@ -23,22 +23,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.quantize import sort_candidates
 
 INF = float("inf")
 
 
 def rerank_pool(vecs, pool_ids, qv, k: int, use_kernel: bool):
     """Exact f32 rescore of each query's candidate pool: the rerank stage
-    of the quantized paths.  Pool ids are sorted ascending first
-    (``sort_candidates``) so the top-k's tie toward the lower input index
-    is the exact path's tie toward the lower rank.  ``use_kernel`` runs the
-    ``gather_rerank`` kernel for every k (the reference leaves its kernel
-    above k = 128)."""
-    ids_s = sort_candidates(pool_ids)                        # (Q, M)
+    of the quantized paths.  Ties go to the lower rank, the exact path's
+    tie, whatever the pool's order: the plain version sorts the ids first
+    (``sort_candidates``), the kernel keys on (dist, id).  ``use_kernel``
+    runs the ``gather_rerank`` kernel for every k (the reference leaves its
+    kernel above k = 128)."""
     if use_kernel:
-        return ops.gather_rerank(vecs, ids_s, qv, k=k)
-    return ref.gather_rerank_ref(vecs, ids_s, qv, k=k)
+        return ops.gather_rerank(vecs, pool_ids, qv, k=k)
+    return ref.gather_rerank_ref(vecs, pool_ids, qv, k=k)
 
 
 def _pool_finish(cand_d, cand_ids, live, k: int, quant):

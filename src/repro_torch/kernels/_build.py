@@ -47,9 +47,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, dtype, scale, ids, q, out_ids, out_d, N, d, Q, M, k, P, SZ,
         # stream
         "gather_topk_launch": [_P, _I] + [_P] * 5 + [_I] * 7 + [_P],
-        # x, ids, q, out_ids, out_d, scratch, N, d, Q, M, k, P, SZ, R, S,
-        # stream
-        "gather_rerank_launch": [_P] * 6 + [_I] * 9 + [_P],
+        # path, vec, x, ids, q, out_ids, out_d, scratch, arrivals, N, d, Q,
+        # M, k, R, S, P, SZ, stream
+        "gather_rerank_launch": [_I, _I] + [_P] * 7 + [_I] * 9 + [_P],
     },
     "l2dist": {
         # q, x, dtype, out, Q, N, d, stream

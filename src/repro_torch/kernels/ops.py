@@ -100,9 +100,12 @@ def gather_topk(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
 def gather_rerank(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
                   k: int):
     """Batched f32 rescore of (Q, M) quantized-pass survivor ids (negative
-    = masked, sorted ascending by the caller) against (Q, d) queries: the
-    exactness-restoring stage of the quantized path.  Every M and every k
-    (the reference's kernel stops at k = 128)."""
+    = masked, in any order) against (Q, d) queries: the exactness-restoring
+    stage of the quantized path.  Distance ties go to the lower id, so the
+    result is the reference's ``gather_rerank`` on the ids sorted ascending
+    (``quantize.sort_candidates``), which the plain version does first and
+    the kernel keys on instead.  Every M and every k (the reference's
+    kernel stops at k = 128)."""
     if x.device.type == "cpu":
         return ref.gather_rerank_ref(x, ids, q, k=k)
     from repro_torch.kernels.gather_dist import gather_rerank_cuda

@@ -17,8 +17,9 @@ Both are bit-equal to the reference's ``repro.kernels.quantize`` corpora
 
 Quantized scoring alone is approximate; the f32 rerank restores the exact
 top-k: the quantized pass over-fetches ``rerank_depth(k, ef)`` survivors,
-sorted ascending by ``sort_candidates`` so the rerank's tie order (toward
-the lower input index) is the exact path's (toward the lower rank)."""
+and the rerank breaks distance ties toward the lower rank, the exact
+path's tie (its plain version sorts them first with ``sort_candidates``;
+the kernel keys on (dist, id))."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -88,9 +89,9 @@ def dequantize(qc: QuantizedCorpus) -> torch.Tensor:
 
 def sort_candidates(ids: torch.Tensor) -> torch.Tensor:
     """Sort candidate rank ids ascending along the last axis, -1 pads last,
-    as int32.  Rerank inputs must arrive in ascending-rank order: the f32
-    rescore breaks distance ties toward the lower input index, so sorting
-    by rank first makes that the exact path's tie toward the lower rank."""
+    as int32: the order the reference's rerank kernel needs (it breaks
+    distance ties toward the lower input index), in which that tie is the
+    exact path's tie toward the lower rank."""
     ids = ids.to(torch.int32)
     s = torch.sort(torch.where(ids >= 0, ids, _INT32_MAX), dim=-1).values
     return torch.where(s == _INT32_MAX, -1, s)

@@ -35,9 +35,9 @@ ROWS_PER_BLOCK = 1024
 #: a larger k is merged in global memory
 SMEM_K = 2048
 
-#: per-(device, stream) arrival counters of the select path: zero before
-#: each launch, and the kernel's last block of each query sets its counter
-#: back to zero
+#: per-(device, stream) arrival counters of the one-launch selects (this
+#: scan's and ``gather_rerank``'s): zero before each launch, and a kernel's
+#: last block of each query sets its counter back to zero
 _ARRIVALS: dict = {}
 
 
@@ -73,7 +73,11 @@ def scan_plan(w: int, k: int, row_bytes: int):
     return PATH_RUN_MERGE, r, 1 << (-(-w // r) - 1).bit_length(), r
 
 
-def _arrivals(dev: torch.device, stream: int, nq: int) -> torch.Tensor:
+def arrival_counters(dev: torch.device, stream: int,
+                     nq: int) -> torch.Tensor:
+    """At least nq zeroed int32 counters on ``dev`` for launches on
+    ``stream`` (kernels on one stream run one after another, so they share
+    them)."""
     buf = _ARRIVALS.get((dev, stream))
     if buf is None or buf.numel() < nq:
         buf = torch.zeros(max(nq, 256), dtype=torch.int32, device=dev)
@@ -128,7 +132,8 @@ def range_scan_cuda(x: torch.Tensor, starts: torch.Tensor,
             raise ValueError(f"range_scan: live has {live.numel()} entries, "
                              f"x has {n_pad} rows")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    arrivals = _arrivals(dev, stream, nq) if path == PATH_SELECT else None
+    arrivals = (arrival_counters(dev, stream, nq) if path == PATH_SELECT
+                else None)
     rc = _build.library("range_scan").range_scan_launch(
         path, x.data_ptr(), code, None if scale is None else scale.data_ptr(),
         starts.data_ptr(), lens.data_ptr(), q.data_ptr(),

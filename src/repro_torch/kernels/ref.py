@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.quantize import sort_candidates
 from repro_torch.kernels.range_scan import window_rows
 
 INF = float("inf")
@@ -82,11 +83,12 @@ def gather_topk_ref(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
 
 def gather_rerank_ref(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
                       k: int):
-    """The f32 rerank: x:(N,d) f32; ids:(Q,M) survivor ranks (negative =
-    masked, sorted ascending by the caller); q:(Q,d) -> (ids:(Q,k),
-    dists:(Q,k)), ties toward the lower input index — the reference's
-    batched ``gather_rerank_ref``, for every k."""
-    return gather_topk_ref(x, ids, q, k=k)
+    """The f32 rerank: x:(N,d) f32; ids:(Q,M) survivor ranks in any order
+    (negative = masked); q:(Q,d) -> (ids:(Q,k), dists:(Q,k)), ties toward
+    the lower id: the ids sorted ascending (``sort_candidates``), then the
+    reference's batched ``gather_rerank_ref`` (ties toward the lower input
+    index), for every k."""
+    return gather_topk_ref(x, sort_candidates(ids), q, k=k)
 
 
 def range_scan_ref(x: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,

@@ -123,25 +123,46 @@ def test_gather_quantized_kernels_match_plain(cuda, precision, m, k, d):
 
 @pytest.mark.parametrize("m,k", [(128, 10), (64, 10), (4096, 200),
                                  (4096, 10), (30000, 128), (5, 8),
-                                 (9000, 3000)])
-def test_gather_rerank_kernel_matches_plain(cuda, m, k):
-    """Every M (past one block's tile) and every k (past 128, and past the
-    shared-memory running best), masked entries and an all-masked row."""
-    from repro_torch.kernels.quantize import sort_candidates
-    rng = np.random.default_rng(m + k)
-    x = torch.as_tensor(rng.standard_normal((50000, 128)), device=cuda,
-                        dtype=torch.float32)
-    ids = torch.as_tensor(rng.integers(0, 50000, (8, m)), device=cuda)
-    ids = torch.where(torch.as_tensor(rng.random((8, m)) < 0.2,
-                                      device=cuda), -1, ids)
+                                 (9000, 3000), (128, 1), (1, 1), (512, 256),
+                                 (300, 257), (30000, 10)])
+@pytest.mark.parametrize("d,aligned", [(128, True), (128, False), (24, True),
+                                       (130, True)])
+def test_gather_rerank_kernel_matches_plain(cuda, m, k, d, aligned):
+    """Every M (past one block's chunk, past one tile), every k (past the
+    select path's 256 and past the shared-memory running best), rows with a
+    partial last 128-wide segment (d = 24), rows for scalar loads (d = 130,
+    or a corpus not 16-byte aligned); unsorted ids with masked entries, an
+    all-masked row, duplicate ids, exact ties between copied rows and ids
+    >= N.  One wrapper launch per call (the kernels on the card per call:
+    ``test_gather_rerank_is_one_launch``)."""
+    rng = np.random.default_rng(m + k + d)
+    n = 50000
+    x_np = rng.standard_normal((n, d)).astype(np.float32)
+    x_np[25000:25100] = x_np[100:200]                  # exact ties
+    flat = torch.empty(n * d + 1, device=cuda)
+    off = int(not aligned)                             # 4 bytes off if not
+    x = flat[off:off + n * d].view(n, d)
+    x.copy_(torch.as_tensor(x_np, device=cuda))
+    assert (x.data_ptr() % 16 == 0) == aligned
+    ids = rng.integers(0, n + 50, (8, m))              # a few ids >= N
+    ids[rng.random((8, m)) < 0.2] = -1
     ids[1] = -1
-    ids = sort_candidates(ids)
-    qv = torch.as_tensor(rng.standard_normal((8, 128)), device=cuda,
+    ids[2, : m // 2] = ids[2, m // 2: 2 * (m // 2)]    # duplicate ids
+    if m >= 2:
+        ids[3, :2] = [25050, 150]                      # tie, higher id first
+    ids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    qv = torch.as_tensor(rng.standard_normal((8, d)), device=cuda,
                          dtype=torch.float32)
+    qv[3] = x[150]
     ops.reset_launches()
     got = ops.gather_rerank(x, ids, qv, k=k)
     assert ops.LAUNCHES["gather_rerank"] == 1
-    _same(got, ref.gather_rerank_ref(x, ids, qv, k=k))
+    want = ref.gather_rerank_ref(x, ids, qv, k=k)
+    _same(got, want)
+    if m >= 2:                 # the exact ties at 0, lower id first
+        tied = got[0][3][got[1][3] == 0].tolist()
+        assert tied[0] == 150 and tied == sorted(tied)
+        assert k < 2 or 25050 in tied
 
 
 def test_quantized_corpus_on_card_equals_cpu(cuda):
@@ -301,6 +322,44 @@ def test_range_scan_is_one_launch(cuda, precision, bucket, k):
     assert len(dev) == 1 and "range_scan_select" in dev[0].key, \
         [e.key for e in dev]
     assert 1 <= dev[0].count <= calls
+
+
+@pytest.mark.parametrize("m", [1, 64, 128, 512, 4096, 30000])
+@pytest.mark.parametrize("d", [128, 130])
+def test_gather_rerank_is_one_launch(cuda, m, d):
+    """For k <= 256 a call is one device launch at every M, with 16-byte
+    (d = 128) or scalar (d = 130) row loads: torch.profiler sees one kernel
+    name, gather_rerank_select, and no more launches than calls (the
+    profiler may drop events, never add them).  It sits beside
+    test_range_scan_is_one_launch, after the end-to-end tests: sessions
+    taken before their many launches left the later sessions of the
+    process recording no kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(m + d)
+    n = 50000
+    x = torch.as_tensor(rng.standard_normal((n, d)), device=cuda,
+                        dtype=torch.float32)
+    ids = rng.integers(0, n, (64, m))
+    ids[rng.random((64, m)) < 0.1] = -1
+    ids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    qv = torch.as_tensor(rng.standard_normal((64, d)), device=cuda,
+                         dtype=torch.float32)
+    for k in (1, 10, 256):
+        call = lambda: ops.gather_rerank(x, ids, qv, k=k)
+        _same(call(), ref.gather_rerank_ref(x, ids, qv, k=k))
+        torch.cuda.synchronize()
+        calls = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        dev = [e for e in p.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        assert len(dev) == 1 and "gather_rerank_select" in dev[0].key, \
+            [e.key for e in dev]
+        assert 1 <= dev[0].count <= calls
 
 
 @pytest.mark.parametrize("d", [1, 3, 127, 130, 515])
