@@ -47,14 +47,35 @@ Phases, each printing its lines:
              beside their byte bound; then ``plan="graph"`` recall@10 and
              QPS per level at ef 64/256/1024 (bw 4, kernels, f32) on the
              same index;
-6. witness — an n = 100,000 build and graph search on the card, written to
+6. serve   — ``repro_torch.launch.serve.main`` (the rfann mode) in
+             process at n × 128 with the serve defaults (k=10, ef=64,
+             --max-batch 64, plan="auto"), 4,096 requests, a 64 MB cache,
+             a 4-shard index directory, calibration and metrics files: run
+             1 builds and persists, run 2 restores (no rebuild) and serves
+             at half of run 1's QPS, run 3 restores at int8, bw 4 with the
+             same calibration file, run 4 as run 3 with a calibration file
+             of its own.  Each run must launch its fused beam
+             (gather_rerank at int8) and never the lockstep loop, runs 1, 2
+             and 4 range_scan too, and each comes within 0.01 of
+             ``RNSGIndex.search``'s recall@10 on the same index under the
+             served routing; every core metric family in the metrics file;
+7. stream  — the launcher's streaming mode at n × 128 (8,192 requests,
+             --max-delta 4000, a WAL and a checkpoint): about 4,096 inserts
+             and 1,024 deletes, at least one compaction on the card; then a
+             server in a child process restores the directories, churns
+             with the WAL and is SIGKILLed mid-churn, and the launcher
+             restarts on them: it must replay the WAL tail onto the
+             checkpoint to the acknowledged live set; then the delta scan
+             (range_scan at bucket = the delta's capacity) against its
+             plain version at capacities 128 .. 8192;
+8. witness — an n = 100,000 build and graph search on the card, written to
              ``chiprun_out/witness_n100000.npz``, and the bench's segment
              tree built and searched at n = 8,192 (its upper levels through
              segment_knn's sliced branch), written to
              ``chiprun_out/witness_segtree_n8192.npz``, for
              ``scale_witness.py``, which holds each against the JAX
              reference on the CPU;
-7. bench   — the paper's benchmark path through ``benchmarks.run_torch``
+9. bench   — the paper's benchmark path through ``benchmarks.run_torch``
              at n = 100,000 × d = 128 (cut from 1M; ``--bench-n``,
              ``--bench-nq``) with ``build_methods(quick=False)``: RNSG,
              MRNG in-filter and post-filter, segment tree and brute force
@@ -69,13 +90,13 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-8. device times — range_scan's, gather_rerank's and l2dist's timed parity
+10. device times — range_scan's, gather_rerank's and l2dist's timed parity
              shapes again,
              under torch.profiler: device time and device launches per
              call (last, because a profiler session slows the host-side
              torch ops of every later phase);
-9. the ``{"kernels": [...]}`` line;
-10. the last line ``{"ok": true, "device": {...}}``.
+11. the ``{"kernels": [...]}`` line;
+12. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -87,6 +108,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -157,6 +179,8 @@ def _device_ms(fn, calls: int = 10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
+        # launches right after the session starts may all go unrecorded
+        time.sleep(0.02)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1218,6 +1242,415 @@ def phase_bench(n, nq, out: Path):
                 search_s=search_s, wall_s=wall)
 
 
+def _serve(argv, ops, counters):
+    """One in-process run of the launcher with the launch counts (and the
+    given call counters) zeroed just before it and read just after it.
+    Returns (its record, its launches)."""
+    from repro_torch.launch import serve
+    for c in counters:
+        c.clear()
+    ops.reset_launches()
+    rec = serve.main(argv)
+    return rec, {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _lockstep_counter():
+    """Wrap the fused beams' plain versions (the lockstep loops) to count
+    their calls; returns (counter list, undo)."""
+    from repro_torch.kernels import ref
+    calls, saved = [], {}
+    for name in ("beam_single_ref", "beam_batched_ref"):
+        inner = saved[name] = getattr(ref, name)
+
+        def counted(*a, _inner=inner, **kw):
+            calls.append(1)
+            return _inner(*a, **kw)
+        setattr(ref, name, counted)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+    return calls, undo
+
+
+def _need_launches(name, got, need, zero=()):
+    if not all(got.get(k, 0) > 0 for k in need) or any(got.get(k, 0)
+                                                        for k in zero):
+        raise AssertionError(f"{name}: launches {got} need {need} and none "
+                             f"of {list(zero)}")
+
+
+def phase_serve(n, tmp: Path, ops, nreq=4096):
+    """``python -m repro_torch.launch.serve --mode rfann`` in-process at
+    n × 128 with the serve defaults (k=10, ef=64, --max-batch 64,
+    plan="auto"), 4,096 requests of the mixed workload, a 64 MB result
+    cache, a 4-shard index directory, calibration and metrics files: run 1
+    builds and persists; run 2 restores (no rebuild) and serves the same
+    stream at half of run 1's QPS; run 3 restores at int8, bw 4 with the
+    same calibration file; run 4 repeats run 3 with a calibration file of
+    its own.  Each run must restore (but run 1), launch its fused beam (and
+    gather_rerank at int8, never at f32) and never the lockstep loop, and
+    come within 0.01 of ``RNSGIndex.search``'s recall@10 on the same
+    queries and index, each query searched with the strategy the served
+    run's planner chose for it (the calibration drifts with the batch sizes
+    a run sees, so a free ``plan="auto"`` pass would route differently).
+    Runs 1, 2 and 4 must launch range_scan too; run 3's routing (a
+    calibration learned at run 2's batches of about four) is reported, not
+    required.  The metrics file must hold every core family."""
+    import torch
+    from repro_torch.core.rfann import RNSGIndex
+    from repro_torch.data.ann import (ground_truth, make_attrs,
+                                      make_vectors, mixed_workload,
+                                      recall_at_k)
+    from repro_torch.obs import CORE_FAMILIES, parse_prometheus
+    from repro_torch.planner import BEAM, SCAN
+    d = 128
+    tmp.mkdir(parents=True, exist_ok=True)
+    idx_dir, prom = tmp / "idx", tmp / "metrics.prom"
+    base = ["--device", "cuda", "--n", str(n), "--dim", str(d),
+            "--requests", str(nreq), "--cache-mb", "64",
+            "--index-path", str(idx_dir), "--index-shards", "4",
+            "--metrics-path", str(prom)]
+    cal = ["--calibration", str(tmp / "calibration.json")]
+    int8 = ["--precision", "int8", "--beam-width", "4"]
+    plans = (("build", cal, True), ("restore", None, True),
+             ("int8_bw4", cal + int8, False),
+             ("int8_bw4_fresh", int8 + ["--calibration",
+                                        str(tmp / "calibration-int8.json")],
+              True))
+    lockstep, undo = _lockstep_counter()
+    runs, t0 = {}, time.perf_counter()
+    try:
+        for name, extra, need_scan in plans:
+            if extra is None:
+                extra = cal + ["--rate", f"{runs['build']['qps'] / 2:.1f}"]
+            t1 = time.perf_counter()
+            rec, launches = _serve(base + extra, ops, [lockstep])
+            wall = time.perf_counter() - t1
+            prec, bw = ("int8", 4) if "--precision" in extra else ("f32", 1)
+            beam = f"{'beam_batched' if bw > 1 else 'beam_single'}.{prec}"
+            need = [beam] + ([f"range_scan.{prec}"] if need_scan else []) + (
+                ["gather_rerank"] if prec == "int8" else [])
+            _need_launches(f"serve {name}", launches, need,
+                           [] if prec == "int8" else ["gather_rerank"])
+            if lockstep:
+                raise AssertionError(f"serve {name}: the lockstep loop ran "
+                                     f"{len(lockstep)} times")
+            if (rec["restored"] is None) != (name == "build"):
+                raise AssertionError(f"serve {name}: restored "
+                                     f"{rec['restored']}")
+            names = {m for m, _ in parse_prometheus(prom.read_text())}
+            miss = [f for f in CORE_FAMILIES
+                    if not any(m == f or m.startswith(f + "_")
+                               for m in names)]
+            if miss:
+                raise AssertionError(f"serve {name}: metrics lack {miss}")
+            summ = rec["summary"]
+            calls = summ["batches"] + 1           # + the warm-up search
+            cost = json.loads(Path(str(prom) + ".json").read_text()).get(
+                "cost_model")
+            runs[name] = dict(
+                qps=rec["qps"], recall=rec["recall"], served=rec["served"],
+                seconds=rec["seconds"], wall_s=wall, summary=summ,
+                restore_s=(rec["restored"] or {}).get("seconds"),
+                cache=rec.get("cache"), launches=launches, cost_model=cost,
+                launches_per_batch={k: v / calls
+                                    for k, v in launches.items()},
+                args=" ".join(base[2:] + extra))
+            print(f"[serve] {name}: qps={rec['qps']:.1f} "
+                  f"recall@10={rec['recall']:.4f} p50_ms={summ['p50_ms']:.3f}"
+                  f" p99_ms={summ['p99_ms']:.3f} batches={summ['batches']} "
+                  f"mean_batch={summ['mean_batch']:.1f} "
+                  f"scan_frac={summ['scan_frac']:.3f} launches={launches} "
+                  f"per batch (of {calls}, the warm-up search included) "
+                  f"{json.dumps({k: round(v, 3) for k, v in runs[name]['launches_per_batch'].items()})} "
+                  f"restore_s={runs[name]['restore_s']} wall {wall:.1f} s")
+            print(f"[serve] {name} EngineStats.summary() {json.dumps(summ)}")
+            print(f"[serve] {name} cost model at shutdown {json.dumps(cost)}")
+            # the library path on the same index and queries, each query
+            # with the strategy the served run's planner chose for it
+            if name == "build":
+                vecs = make_vectors(n, d, seed=0)
+                attrs = make_attrs(n, seed=0)
+                qv = make_vectors(nreq, d, seed=7)
+                ranges, _ = mixed_workload(attrs, nreq, seed=3)
+                order = np.argsort(attrs, kind="stable")
+                gt_r, _ = ground_truth(vecs[order], attrs[order], qv,
+                                       ranges, 10)
+                gt = np.where(gt_r >= 0, order[np.maximum(gt_r, 0)], -1)
+                idx = RNSGIndex.load(str(idx_dir), device="cuda")
+                auto = np.concatenate([
+                    idx.search(qv[i:i + 64], ranges[i:i + 64], k=10, ef=64,
+                               plan="auto").ids
+                    for i in range(0, nreq, 64)])
+                auto_rec = recall_at_k(auto, gt)
+            if prec != "f32":
+                idx.install_quantized(prec)
+            lib = np.full_like(rec["ids"], -1)
+            for plan, code in (("scan", SCAN), ("beam", BEAM)):
+                sel = np.flatnonzero(rec["strategy"] == code)
+                for i in range(0, len(sel), 64):
+                    s = sel[i:i + 64]
+                    lib[s] = idx.search(qv[s], ranges[s], k=10, ef=64,
+                                        plan=plan, beam_width=bw,
+                                        precision=prec).ids
+            lib_rec = recall_at_k(lib, gt)
+            same = float((lib == rec["ids"]).all(1).mean())
+            runs[name].update(library_recall=lib_rec, equal_to_library=same)
+            print(f"[serve] {name}: RNSGIndex.search on the persisted index "
+                  f"with the served routing: recall@10={lib_rec:.4f}, ids "
+                  f"equal on {same * 100:.2f}% of queries (plan='auto' at "
+                  f"f32 from the prior calibration: recall@10="
+                  f"{auto_rec:.4f})")
+            if abs(rec["recall"] - lib_rec) > 0.01:
+                raise AssertionError(f"serve {name}: recall "
+                                     f"{rec['recall']:.4f} is more than 0.01 "
+                                     f"from RNSGIndex.search's {lib_rec:.4f}")
+        del idx
+        torch.cuda.empty_cache()
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[serve] done in {time.perf_counter() - t0:.1f} s")
+    return dict(n=n, d=d, requests=nreq, runs=runs,
+                library_auto_recall=auto_rec)
+
+
+def _crash_script(live_ids: np.ndarray, n: int, steps: int, seed=11):
+    """The churn of the stream phase's crashed server, from the live set it
+    restored: per step one insert of the highest corpus row not live, and
+    one delete per four steps of a live id in a seeded order.  Returns
+    [("I" | "D", id)]."""
+    live = np.zeros(n, bool)
+    live[live_ids] = True
+    pending = np.flatnonzero(~live)[::-1]
+    victims = np.random.default_rng(seed).permutation(live_ids)
+    ops = []
+    for i in range(steps):
+        ops.append(("I", int(pending[i])))
+        if i % 4 == 3:
+            ops.append(("D", int(victims[i // 4])))
+    return ops
+
+
+def _live_after(live_ids: np.ndarray, ops) -> np.ndarray:
+    """The ascending live ids after applying ``ops`` to ``live_ids``."""
+    live = set(live_ids.tolist())
+    for op, j in ops:
+        (live.add if op == "I" else live.discard)(j)
+    return np.array(sorted(live), np.int64)
+
+
+def _stream_crash_child(ckpt: str, wal: str, ack: str, n: int,
+                        steps: int) -> None:
+    """The crashed server of the stream phase, run in a process of its own
+    on the card: restore the checkpoint and replay the WAL as the launcher
+    does, write ``READY <live digest>`` to ``ack``, then churn
+    ``_crash_script`` through an ``RFANNEngine`` with the WAL attached (no
+    compaction, so the tail stays in the log), appending the count of
+    acknowledged mutations to ``ack`` after each one returns.  The parent
+    SIGKILLs it mid-churn."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.ann import make_attrs, make_vectors
+    from repro_torch.index import io
+    from repro_torch.launch.serve import live_record
+    from repro_torch.serving.engine import RFANNEngine
+    idx = io.load_index(ckpt, device="cuda")
+    idx.replay_wal(wal)
+    start = live_record(idx)
+    vecs = make_vectors(n, 128, seed=0)
+    attrs = make_attrs(n, seed=0)
+    script = _crash_script(start["live_ids"], n, steps)
+    eng = RFANNEngine(idx, k=10, ef=64, max_delta=10**9, wal_dir=wal,
+                      index_path=ckpt)
+    fd = os.open(ack, os.O_CREAT | os.O_WRONLY | os.O_APPEND, 0o644)
+    os.write(fd, f"READY {start['live_digest']}\n".encode())
+    for i, (op, j) in enumerate(script):
+        if op == "I":
+            eng.insert(vecs[j], float(attrs[j]), ext_id=j)
+        else:
+            eng.delete(j)
+        os.write(fd, f"{i + 1}\n".encode())
+    os.write(fd, b"DONE\n")
+    time.sleep(600)                 # the parent kills it before this ends
+
+
+def _crash_mid_churn(ckpt, wal, n, steps, kill_at, timeout=300):
+    """Run ``_stream_crash_child`` and SIGKILL it once ``kill_at``
+    mutations are acknowledged.  Returns (the digest it restored, the count
+    of acknowledged mutations)."""
+    import signal
+    ack = wal.parent / "acks"
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke._stream_crash_child("
+            f"{str(ckpt)!r}, {str(wal)!r}, {str(ack)!r}, {n}, {steps})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+    deadline, lines = time.time() + timeout, []
+    try:
+        while time.time() < deadline and proc.poll() is None:
+            lines = ack.read_text().split("\n")[:-1] if ack.exists() else []
+            if len(lines) > kill_at:
+                break
+            time.sleep(0.01)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    lines = ack.read_text().split("\n")[:-1] if ack.exists() else []
+    if len(lines) <= kill_at or lines[-1] == "DONE":
+        raise AssertionError(f"stream: the crashed server acknowledged "
+                             f"{len(lines) - 1} mutations (exit "
+                             f"{proc.returncode}), not {kill_at} of {steps} "
+                             f"before the kill")
+    return lines[0].split()[1], int(lines[-1])
+
+
+def phase_stream(n, tmp: Path, ops, nreq=8192, max_delta=4000,
+                 crash_steps=4096, kill_at=512):
+    """The launcher's streaming mode in-process at n × 128: 8,192
+    requests, ``--max-delta 4000``, a WAL and a checkpoint directory; the
+    first half churns the held-out 20 % of the corpus in (one insert per
+    request) and one delete per four, which fills the delta and compacts
+    on the card (4,096 inserts less the deletes that land in the delta
+    leave it just short of 4,096 rows, so the threshold sits below).  Then
+    a server in a process of its own restores the directories (its live
+    set must equal the first run's final one), churns on with the WAL and
+    is SIGKILLed after ``kill_at`` acknowledged mutations, and the launcher
+    restarts on the same directories: it must replay that WAL tail onto the
+    checkpoint to the acknowledged live set (or that set and the one
+    mutation in flight at the kill), vectors and attributes included.
+    Prints the compaction's wall time and the delta scan's launches, and
+    holds the delta scan (range_scan at bucket = the delta's capacity)
+    against its plain version at each capacity 128 .. 8192."""
+    import torch
+    from repro_torch.data.ann import make_attrs, make_vectors
+    from repro_torch.launch.serve import live_digest
+    from repro_torch.streaming import DeltaView
+    d = 128
+    tmp.mkdir(parents=True, exist_ok=True)
+    wal, ckpt, prom = tmp / "wal", tmp / "ckpt", tmp / "metrics.prom"
+    base = ["--device", "cuda", "--n", str(n), "--dim", str(d),
+            "--max-delta", str(max_delta), "--wal-dir", str(wal),
+            "--index-path", str(ckpt), "--metrics-path", str(prom)]
+    lockstep, undo = _lockstep_counter()
+    t0 = time.perf_counter()
+    try:
+        rec, launches = _serve(base + ["--requests", str(nreq)], ops,
+                               [lockstep])
+        if lockstep:
+            raise AssertionError("stream: the lockstep loop ran")
+        _need_launches("stream", launches,
+                       ["beam_single.f32", "range_scan.f32"])
+        snap = json.loads(Path(str(prom) + ".json").read_text())
+        comp = snap["counters"].get("stream_compactions_total", 0)
+        if comp < 1:
+            raise AssertionError("stream: no compaction ran")
+        build_h = snap["histograms"]["stream_compaction_build_ms"]
+        pause_h = snap["histograms"]["stream_compaction_pause_ms"]
+        # the base's scans are the engine's scan dispatches (one launch
+        # each; the warm-up's 2^0-level queries route to the graph), the
+        # rest of range_scan's launches are the delta's
+        base_scans = snap["histograms"].get("scan_dispatch_ms", {}).get(
+            "count", 0)
+        scans = launches["range_scan.f32"] - base_scans
+        if scans < 1:
+            raise AssertionError(f"stream: no delta scan ({launches}, "
+                                 f"{base_scans} base scans)")
+        first = dict(qps=rec["qps"], recall=rec["recall"],
+                     served=rec["served"], seconds=rec["seconds"],
+                     summary=rec["summary"], launches=launches,
+                     compactions=comp,
+                     compaction_build_ms=build_h, compaction_pause_ms=pause_h,
+                     base_scan_launches=base_scans,
+                     delta_scan_launches=scans, live=len(rec["live_ids"]),
+                     streaming=snap.get("streaming"), wal=snap.get("wal"))
+        print(f"[stream] qps={rec['qps']:.1f} recall@10 (second half, final "
+              f"live set)={rec['recall']:.4f} compactions={comp} compaction "
+              f"build wall {build_h['sum'] / max(build_h['count'], 1):.1f} ms"
+              f" (pause {pause_h['max']:.3f} ms) delta scans: {scans} "
+              f"range_scan launches ({launches['range_scan.f32']} less the "
+              f"base's {base_scans}); launches {launches}; live "
+              f"{len(rec['live_ids'])} ids")
+        print(f"[stream] EngineStats.summary() {json.dumps(rec['summary'])}")
+        # a server restores the directories, churns and is killed
+        t1 = time.perf_counter()
+        digest, acked = _crash_mid_churn(ckpt, wal, n, crash_steps, kill_at)
+        crash_s = time.perf_counter() - t1
+        if digest != rec["live_digest"]:
+            raise AssertionError("stream: a restore of the first run's "
+                                 "directories differs from its live set")
+        script = _crash_script(rec["live_ids"], n, crash_steps)
+        rec2, launches2 = _serve(base + ["--requests", str(nreq // 8)], ops,
+                                 [lockstep])
+        got = rec2["restored"]
+        if got is None or got["replayed"] < max(acked, 1):
+            raise AssertionError(f"stream restart: replayed "
+                                 f"{got and got['replayed']} WAL records, "
+                                 f"{acked} mutations were acknowledged")
+        vecs = make_vectors(n, d, seed=0)
+        attrs = make_attrs(n, seed=0)
+        match = None
+        for m in (acked, acked + 1):
+            want = _live_after(rec["live_ids"], script[:m])
+            if np.array_equal(got["live_ids"], want) and got[
+                    "live_digest"] == live_digest(want, attrs[want],
+                                                  vecs[want]):
+                match = m
+                break
+        print(f"[stream] restart after a SIGKILL {acked} acknowledged "
+              f"mutations into the churn ({crash_s:.1f} s with the child's "
+              f"start): replayed {got['replayed']} WAL records onto the "
+              f"checkpoint in {got['seconds']:.2f} s of restore; live set "
+              f"{len(got['live_ids'])} ids, equal (ids, vectors, "
+              f"attributes) to the first run's final set with the first "
+              f"{match} of the {len(script)} mutations; then served "
+              f"{rec2['served']} at qps={rec2['qps']:.1f} "
+              f"recall@10={rec2['recall']:.4f}")
+        if match is None:
+            raise AssertionError("stream restart: the live set is not the "
+                                 "acknowledged one")
+        first["restart"] = dict(acked=acked, replayed=got["replayed"],
+                                applied=match, live=len(got["live_ids"]),
+                                restore_s=got["seconds"], qps=rec2["qps"],
+                                recall=rec2["recall"], launches=launches2)
+        del vecs, attrs
+        # the delta scan on the card against its plain version
+        rng = np.random.default_rng(5)
+        parity = []
+        for cap in (128, 256, 512, 1024, 2048, 4096, 8192):
+            m = cap - cap // 3
+            v = rng.standard_normal((m, d)).astype(np.float32)
+            a = np.sort(rng.random(m).astype(np.float32))
+            ids = np.arange(m, dtype=np.int32) + 7
+            qv = rng.standard_normal((64, d)).astype(np.float32)
+            lo = rng.random(64).astype(np.float32) * 0.8
+            ar = np.stack([lo, lo + rng.random(64).astype(np.float32) * 0.3],
+                          1)
+            got_v = DeltaView(v, a, ids, "cuda")
+            want_v = DeltaView(v, a, ids, "cpu")
+            got_r = got_v.search(qv, ar, 10)
+            want_r = want_v.search(qv, ar, 10)
+            atol = 1e-4 * max(1.0, float((v * v).sum(1).max()))
+            err = _compare(f"delta scan capacity {cap}",
+                           tuple(torch.as_tensor(x) for x in got_r),
+                           tuple(torch.as_tensor(x) for x in want_r), atol)
+            capacity = got_v._dev[2]
+            ms = _time_ms(lambda: got_v.search(qv, ar, 10), 20)
+            parity.append(dict(capacity=int(capacity), rows=m, q=64, k=10,
+                               max_abs_err=err, ms=ms))
+            print(f"[stream] delta scan capacity {capacity} ({m} rows): "
+                  f"equal to the plain version, err={err:.3g}, "
+                  f"{ms:.4f} ms per search (host set-up and copies "
+                  f"included)")
+        first["delta_parity"] = parity
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    first["wall_s"] = time.perf_counter() - t0
+    print(f"[stream] done in {first['wall_s']:.1f} s")
+    return first
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1255,6 +1688,12 @@ def main() -> int:
 
     phase_exact(args.seed)
     full = phase_full(n, args.nq, 64, args.seed, ops)
+    torch.cuda.empty_cache()
+    scratch = ROOT / "build" / "chip_smoke"
+    served = phase_serve(n, scratch / "serve", ops)
+    torch.cuda.empty_cache()
+    stream = phase_stream(n, scratch / "stream", ops)
+    torch.cuda.empty_cache()
     out = ROOT / "chiprun_out"
     phase_witness(args.seed + 3, out)
     phase_witness_segtree(out)
@@ -1392,9 +1831,20 @@ def main() -> int:
               f"build's top-level tile)",
         other_shapes=[dict(r, shape=f"{r['shape']} {r['dtype']}")
                       for r in l2 if "ms" in r and r is not l2_main]))
+    # what the serve and stream phases launched, per kernel and run
+    for rec in kern:
+        per_run = {f"serve_{run}": {k: v for k, v in r["launches"].items()
+                                    if k.split(".")[0] == rec["name"]}
+                   for run, r in served["runs"].items()}
+        per_run["stream"] = {k: v for k, v in stream["launches"].items()
+                             if k.split(".")[0] == rec["name"]}
+        rec["serve_launches"] = {run: c for run, c in per_run.items() if c}
+    kern[0]["delta_scan"] = dict(launches=stream["delta_scan_launches"],
+                                 parity=stream["delta_parity"])
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
-                   gather_rerank=rr, l2dist=l2, full=full, bench=bench,
+                   gather_rerank=rr, l2dist=l2, full=full, serve=served,
+                   stream=stream, bench=bench,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

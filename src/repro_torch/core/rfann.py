@@ -1,14 +1,19 @@
 """High-level RFANN API: build / save / load / batched search on one RNSG
 index on one device.  Query execution is delegated to the search substrate
-(``repro_torch.search``); this class owns the index lifecycle."""
+(``repro_torch.search``); this class owns the index lifecycle.
+
+``use_kernel=None`` (the default of ``search`` / ``search_ranks``) means the
+fused kernels on a CUDA index and their plain versions on a CPU one, so a
+caller that does not choose — the serving engine — serves the card through
+its kernels; an explicit ``True`` / ``False`` is honoured."""
 from __future__ import annotations
 
-import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.construction import RNSGGraph, build_rnsg
+from repro_torch.device import resolve_use_kernel
 from repro_torch.obs.trace import maybe_span
 from repro_torch.search import SearchRequest, SearchSubstrate, rank_interval
 
@@ -19,6 +24,7 @@ class RNSGIndex:
     def __init__(self, graph: RNSGGraph):
         self.g = graph
         self._substrate = None        # lazy search substrate
+        self._metrics = None          # registry the substrate is built with
 
     # ------------------------------------------------------------------
     @classmethod
@@ -27,18 +33,30 @@ class RNSGIndex:
         """Build on ``device`` (default the card; raises without one)."""
         return cls(build_rnsg(vectors, attrs, device=device, **kw))
 
-    def save(self, path: str) -> None:
-        """Atomic single-npz save in the reference's layout (graph only)."""
-        self.g.save(path)
+    def save(self, path: str, *, shards: int = 0) -> None:
+        """``shards=0``: atomic single-npz save in the reference's layout
+        (graph only).  ``shards>=1``: the sharded directory format
+        (``repro_torch.index.io``), which also captures installed quantized
+        corpora and restores by mmap and parallel reads."""
+        if shards:
+            from repro_torch.index import io
+            io.save_index(self, path, shards=shards)
+        else:
+            self.g.save(path)
 
     @classmethod
     def load(cls, path: str, device=None) -> "RNSGIndex":
-        """Load an npz index written by either package onto ``device``
-        (default the card)."""
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path} is a directory: the sharded index format arrives "
-                f"with the port of index/io.py")
+        """Load an npz index or an index directory written by either
+        package onto ``device`` (default the card)."""
+        from repro_torch.index import io
+        if io.is_index_dir(path):
+            idx = io.load_index(path, device=device)
+            if not isinstance(idx, cls):
+                raise TypeError(f"index at {path} is "
+                                f"{type(idx).__name__}, not RNSGIndex — "
+                                f"load it with repro_torch.index.io."
+                                f"load_index")
+            return idx
         return cls(RNSGGraph.load(path, device=device))
 
     # ------------------------------------------------------------------
@@ -46,12 +64,29 @@ class RNSGIndex:
     def substrate(self) -> SearchSubstrate:
         """Lazily-built search substrate (resolve/dispatch/stitch)."""
         if self._substrate is None:
-            self._substrate = SearchSubstrate.from_graph(self.g)
+            self._substrate = SearchSubstrate.from_graph(
+                self.g, metrics=self._metrics)
         return self._substrate
+
+    @property
+    def executor(self):
+        return self.substrate
 
     @property
     def planner(self):
         return self.substrate.planner
+
+    def install_cache(self, cache) -> None:
+        """Install (or remove, with ``None``) a ``SearchCache`` at the
+        substrate choke point (``repro_torch.search.cache``)."""
+        self.substrate.cache = cache
+
+    def install_metrics(self, metrics) -> None:
+        """Install (or remove, with ``None``) a ``MetricsRegistry`` on the
+        substrate, so substrate counters and histograms land in the
+        engine's registry."""
+        self._metrics = metrics
+        self.substrate.metrics = metrics
 
     def install_quantized(self, precision: str) -> None:
         """Pre-build the quantized corpus copies for one precision (int8 /
@@ -65,7 +100,7 @@ class RNSGIndex:
                              np.asarray(attr_ranges, np.float32))
 
     def search(self, queries: np.ndarray, attr_ranges: np.ndarray, *,
-               k: int = 10, ef: int = 64, use_kernel: bool = False,
+               k: int = 10, ef: int = 64, use_kernel: Optional[bool] = None,
                plan: str = "graph", beam_width: int = 1,
                precision: str = "f32", trace=None, live=None):
         """queries:(Q,d); attr_ranges:(Q,2) attribute values (inclusive).
@@ -75,7 +110,8 @@ class RNSGIndex:
         single-node hop; B>1 fuses B node expansions per hop).
         use_kernel: run each beam dispatch's hop loop in one fused kernel
         (``ops.beam_single`` / ``ops.beam_batched``) and the quantized
-        rerank in ``gather_rerank``.
+        rerank in ``gather_rerank``; ``None`` resolves by the index's
+        device (``True`` on the card, ``False`` on the CPU).
         precision: "f32" | "int8" | "bf16" — quantized scoring (scan and
         traversal against the int8/bf16 corpus copy, ``install_quantized``)
         with an exact f32 rerank of the survivors (same top-k ids as f32
@@ -94,12 +130,13 @@ class RNSGIndex:
                                  beam_width=beam_width, precision=precision,
                                  trace=trace, live=live)
 
-    def search_ranks(self, queries, lo, hi, *, k=10, ef=64, use_kernel=False,
+    def search_ranks(self, queries, lo, hi, *, k=10, ef=64, use_kernel=None,
                      plan="graph", beam_width=1, precision="f32", trace=None,
                      live=None):
         return self.substrate.run(SearchRequest(
             queries=np.asarray(queries, np.float32), lo=lo, hi=hi,
-            k=k, ef=ef, strategy=plan, use_kernel=use_kernel,
+            k=k, ef=ef, strategy=plan,
+            use_kernel=resolve_use_kernel(use_kernel, self.g.device),
             beam_width=beam_width, precision=precision, trace=trace,
             live=live))
 

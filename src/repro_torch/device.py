@@ -14,3 +14,12 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: no CUDA device is present; pass device='cpu' to "
             "run the plain PyTorch path on the CPU")
     return dev
+
+
+def resolve_use_kernel(use_kernel, device) -> bool:
+    """A search's ``use_kernel``: ``None`` means the fused kernels on a
+    CUDA index and their plain versions on a CPU one; an explicit bool is
+    kept."""
+    if use_kernel is None:
+        return torch.device(device).type == "cuda"
+    return bool(use_kernel)

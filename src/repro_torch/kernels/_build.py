@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -69,6 +70,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: serializes first loads: the serving engine's dispatch thread and a
+#: compaction or test thread may reach an unbuilt library at once, and two
+#: builds in one process would share one temporary file name
+_LIB_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -130,12 +135,15 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel file, built first if missing."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(target(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        with _LIB_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(target(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIBS[name] = lib
     return lib
 
 

@@ -5,6 +5,11 @@ one device:
 
 * ``resolve``  — attribute ranges -> rank intervals
                  (``repro_torch.search.resolve``);
+* cache        — when a ``SearchCache`` is installed, each request is split
+                 into hit rows (served from memory, no device work), unique
+                 miss rows (executed), and intra-batch duplicates of a miss
+                 (executed once, fanned back out), stitched in request
+                 order;
 * dispatch     — ``graph`` runs the paper's beam search over the full batch;
                  ``auto``/``scan``/``beam`` go through the adaptive planner,
                  which partitions the batch into fixed-shape dispatches
@@ -23,8 +28,11 @@ model: observed ``ndist`` from beam stats and warm-call wall times per work
 unit (the first call of each signature is excluded, so the kernels' build
 never enters calibration).
 
-Not ported yet: the result cache, the metrics registry and the mesh
-substrate.
+An installed ``MetricsRegistry`` counts routed queries, cache outcomes,
+pad waste and rerank rows and observes dispatch wall histograms under the
+reference's names; the dispatch sites carry the reference's profiler span
+names (``rnsg.scan_dispatch``, ``rnsg.beam_dispatch``,
+``rnsg.graph_beam_dispatch``).  Not ported yet: the mesh substrate.
 """
 from __future__ import annotations
 
@@ -39,10 +47,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import range_scan
 from repro_torch.kernels.quantize import (QuantizedCorpus, quantize_corpus,
                                           rerank_depth)
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profiler import annotate
 from repro_torch.obs.trace import maybe_span
 from repro_torch.planner.bucketing import ROW_TILE, window_rows
-from repro_torch.planner.planner import QueryPlanner
+from repro_torch.planner.planner import SCAN, QueryPlanner
 from repro_torch.search import resolve
+from repro_torch.search.cache import SearchCache
 from repro_torch.search.request import SearchRequest, SearchResult
 
 INF = np.float32(np.inf)
@@ -79,7 +90,8 @@ class PendingSearch:
 
 class SearchSubstrate:
     def __init__(self, vecs, nbrs, rmq, dist_c, order, attrs, *,
-                 device=None):
+                 device=None, cache: Optional[SearchCache] = None,
+                 cache_ns=None, metrics: Optional[MetricsRegistry] = None):
         dev = resolve_device(device)
         self.device = dev
         self._vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)
@@ -88,6 +100,9 @@ class SearchSubstrate:
         self._dist_c = torch.as_tensor(dist_c, device=dev)
         self.order = _host(order)
         self.attrs = _host(attrs)
+        self.cache = cache
+        self.cache_ns = cache_ns    # distinguishes segments sharing one cache
+        self.metrics = metrics      # optional MetricsRegistry (obs layer)
         n, d = self._vecs.shape
         self.n, self.d = n, d
         self.tb = ROW_TILE          # must match the range_scan kernel tile
@@ -105,6 +120,11 @@ class SearchSubstrate:
         kw.setdefault("device", g.device)
         return cls(g.vecs, g.nbrs, g.rmq, g.dist_c, g.order, g.attrs, **kw)
 
+    # ------------------------------------------------------------ resolve
+    def resolve(self, attr_ranges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Attribute ranges (Q,2) -> inclusive rank intervals (lo, hi)."""
+        return resolve.rank_interval(self.attrs, attr_ranges)
+
     # ---------------------------------------------------------------- run
     def run(self, req: SearchRequest) -> SearchResult:
         """Dispatch one request synchronously and stitch the result."""
@@ -114,28 +134,89 @@ class SearchSubstrate:
                  defer: bool = True) -> PendingSearch:
         """Enqueue one request's device work and return a ``PendingSearch``.
         ``defer=False`` blocks each planned partition before dispatching the
-        next and calibrates on its wall time.  A ``req.trace`` collects plan
-        / dispatch / stitch spans."""
+        next and calibrates on its wall time.  Cache hits are resolved here
+        — a fully-hit request performs no device work at all.  A
+        ``req.trace`` collects plan / dispatch / stitch spans; the installed
+        ``MetricsRegistry`` (when any) counts routed queries, cache
+        outcomes and pad waste, and observes dispatch wall histograms."""
         qv = np.asarray(req.queries, np.float32)
         lo = np.asarray(req.lo, np.int64)
         hi = np.asarray(req.hi, np.int64)
-        fin = self._dispatch_all(qv, lo, hi, int(req.k), int(req.ef),
-                                 req.strategy, req.use_kernel, defer,
-                                 int(req.beam_width), req.precision,
-                                 trace=req.trace, live=req.live)
-        return PendingSearch(self._stitched(fin, req.trace))
+        k, ef, bw = int(req.k), int(req.ef), int(req.beam_width)
+        prec = req.precision
+        tr = req.trace
+        met = self.metrics
+        nq = len(qv)
+        if met is not None and nq:
+            met.counter("queries_total").inc(nq)
+            met.counter(f"queries_{prec}_total").inc(nq)
+        live = req.live
+        cache = self.cache
+        cache_info = dict(cache_enabled=cache is not None,
+                          cache_hits=0, cache_misses=nq, batch_dedup=0)
+        if cache is None or nq == 0:
+            fin = self._dispatch_all(qv, lo, hi, k, ef, req.strategy,
+                                     req.use_kernel, defer, bw, prec,
+                                     trace=tr, cache_info=cache_info,
+                                     live=live)
+            return PendingSearch(self._stitched(fin, tr))
+        # (global, segment) epoch pair: fences stores against invalidate()
+        # and invalidate_segment(self.cache_ns), which the streaming layer
+        # bumps on every tombstone change and compaction
+        epoch = cache.epoch_for(self.cache_ns)
+        cal_epoch = (self.planner.calibration_epoch
+                     if req.strategy == "auto" else None)
+        keys, hit_rows, miss, dups = cache.split(
+            qv, lo, hi, k, ef, req.strategy, req.use_kernel,
+            ns=self.cache_ns, beam_width=bw,
+            precision=prec, cal_epoch=cal_epoch)
+        cache_info.update(cache_hits=len(hit_rows), cache_misses=len(miss),
+                          batch_dedup=len(dups))
+        if met is not None:
+            met.counter("cache_hit_rows_total").inc(len(hit_rows))
+            met.counter("cache_miss_rows_total").inc(len(miss))
+            if dups:
+                met.counter("cache_dedup_rows_total").inc(len(dups))
+        if len(miss) == 0:
+            if tr is not None:          # fully hit: no device work at all
+                tr.add_span("dispatch", dispatched=0, ns=self.cache_ns,
+                            **cache_info)
+            return PendingSearch(self._stitched(
+                lambda: cache.assemble(nq, k, hit_rows, None, miss), tr))
+        fin = self._dispatch_all(qv[miss], lo[miss], hi[miss], k, ef,
+                                 req.strategy, req.use_kernel, defer, bw,
+                                 prec, trace=tr, cache_info=cache_info,
+                                 live=live)
+        miss_keys = [keys[i] for i in miss]
+
+        def finalize() -> SearchResult:
+            miss_res = fin()
+            cache.store_batch(miss_keys, miss_res, epoch=epoch,
+                              cal_epoch=cal_epoch)
+            if not hit_rows and not dups:
+                miss_res.stats["cache_hits"] = 0
+                return miss_res
+            return cache.assemble(nq, k, hit_rows, miss_res, miss, dups)
+        return PendingSearch(self._stitched(finalize, tr))
 
     def _stitched(self, fin: Callable[[], SearchResult],
                   tr) -> Callable[[], SearchResult]:
-        """Wrap a finalize closure with the stitch span and attach the
-        trace to the result.  Identity when tracing is off."""
-        if tr is None:
+        """Wrap a finalize closure with the stitch span (block + assembly +
+        id remap) and the ``stitch_ms`` histogram, and attach the trace to
+        the result.  Identity when neither tracing nor metrics are on."""
+        met = self.metrics
+        if tr is None and met is None:
             return fin
 
         def finalize() -> SearchResult:
-            with tr.span("stitch"):
+            t0 = time.perf_counter()
+            with maybe_span(tr, "stitch", ns=self.cache_ns):
                 res = fin()
-            res.trace = tr
+            if met is not None:
+                met.histogram("stitch_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+            if tr is not None:
+                res.trace = tr
             return res
         return finalize
 
@@ -143,17 +224,22 @@ class SearchSubstrate:
     def _dispatch_all(self, qv, lo, hi, k, ef, strategy, use_kernel,
                       defer: bool, beam_width: int = 1,
                       precision: str = "f32", trace=None,
-                      live=None) -> Callable[[], SearchResult]:
-        """Enqueue the work for one batch; the returned closure blocks,
-        stitches, and remaps rank ids to original ids."""
+                      cache_info=None, live=None) -> Callable[[], SearchResult]:
+        """Enqueue the uncached work for one (sub-)batch; the returned
+        closure blocks, stitches, and remaps rank ids to original ids."""
+        met = self.metrics
         with maybe_span(trace, "dispatch") as sp:
+            sp.attrs.update(cache_info or {})
             sp.attrs.update(strategy_mode=strategy, use_kernel=use_kernel,
-                            beam_width=beam_width, precision=precision,
+                            beam_width=beam_width, ns=self.cache_ns,
+                            precision=precision,
                             dispatched=len(qv), deferred=defer)
             if strategy == "graph":
                 if trace is not None:
                     trace.add_span("plan", strategy_mode="graph",
                                    chosen="graph", beam_width=beam_width)
+                if met is not None and len(qv):
+                    met.counter("graph_queries_total").inc(len(qv))
                 fin = self._dispatch_graph(qv, lo, hi, k, ef, use_kernel,
                                            beam_width, precision, live=live)
             else:
@@ -181,17 +267,24 @@ class SearchSubstrate:
         entry = resolve.select_entry(self._rmq, self._dist_c, lo_j, hi_j,
                                      self.n)
         live_b, _ = self._live_ops(live)
-        ids, dists, st = beam_search_batch(
-            self._vecs, self._nbrs, qj, lo_j, hi_j, entry,
-            k=k, ef=max(ef, k), use_kernel=use_kernel,
-            beam_width=beam_width, quant=self._quant_ops(precision),
-            live=live_b)
+        t0 = time.perf_counter()
+        with annotate("rnsg.graph_beam_dispatch"):
+            ids, dists, st = beam_search_batch(
+                self._vecs, self._nbrs, qj, lo_j, hi_j, entry,
+                k=k, ef=max(ef, k), use_kernel=use_kernel,
+                beam_width=beam_width, quant=self._quant_ops(precision),
+                live=live_b)
+        met = self.metrics
 
         def finalize():
             st_h = {kk: vv.cpu().numpy() for kk, vv in st.items()}
             st_h["strategy"] = np.ones(len(qv), np.int8)     # all graph/beam
             st_h["scan_frac"] = 0.0
-            return ids.cpu().numpy(), dists.cpu().numpy(), st_h
+            ids_h, d_h = ids.cpu().numpy(), dists.cpu().numpy()
+            if met is not None:
+                met.histogram("graph_dispatch_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+            return ids_h, d_h, st_h
         return finalize
 
     # ---------------------------------------------------- planned strategies
@@ -202,6 +295,7 @@ class SearchSubstrate:
         """Routing policy: plan the batch, dispatch each fixed-shape
         partition, stitch back in request order."""
         q = len(qv)
+        met = self.metrics
         if trace is None:
             plan = self.planner.plan_batch(lo, hi, k=k, ef=ef, mode=mode,
                                            beam_width=beam_width,
@@ -222,9 +316,15 @@ class SearchSubstrate:
                     precision=precision,
                     partitions=[p.signature for p in plan.partitions],
                     predicted_scan_units=sc, predicted_beam_units=bc)
+        pad_rows = sum(p.pad_q - len(p.indices) for p in plan.partitions)
+        if met is not None and q:
+            n_scan = int((plan.strategy == SCAN).sum())
+            met.counter("scan_routed_total").inc(n_scan)
+            met.counter("beam_routed_total").inc(q - n_scan)
+            if pad_rows:
+                met.counter("pad_rows_total").inc(pad_rows)
         if span is not None:
-            span.attrs["pad_rows"] = sum(p.pad_q - len(p.indices)
-                                         for p in plan.partitions)
+            span.attrs["pad_rows"] = pad_rows
         fins = []
         for part in plan.partitions:
             if part.kind == "scan":
@@ -304,10 +404,13 @@ class SearchSubstrate:
         """Build (or rebuild) the quantized corpus copies for one precision
         ahead of serving, so the first quantized request pays no build
         cost.  The lazy build happens anyway on first use
-        (``_quant_for``)."""
+        (``_quant_for``).  The scored corpus changed, so this substrate's
+        cache segment goes cold."""
         if precision != "f32":
             self._quant.pop(precision, None)
             self._quant_for(precision)
+            if self.cache is not None:
+                self.cache.invalidate_segment(self.cache_ns)
 
     def _quant_for(self, precision: str) -> Optional[dict]:
         """Quantized scoring slots for one precision (lazy, cached):
@@ -341,9 +444,11 @@ class SearchSubstrate:
                     bytes_per_vector=qc.bytes_per_vector)
 
     def preload_quantized(self, precision: str, data, scale=None) -> None:
-        """Attach a prebuilt quantized corpus copy without re-quantizing.
-        ``data`` may arrive as an exact f32 upcast; it is narrowed back to
-        the precision's dtype here, which round-trips bit-exactly."""
+        """Attach a prebuilt quantized corpus copy (the index-restore path,
+        ``repro_torch.index.io``) without re-quantizing.  ``data`` may
+        arrive as an exact f32 upcast; it is narrowed back to the
+        precision's dtype here, which round-trips bit-exactly.  Same cache
+        rule as :meth:`install_quantized`."""
         if precision == "f32":
             return
         dt = torch.bfloat16 if precision == "bf16" else torch.int8
@@ -352,6 +457,8 @@ class SearchSubstrate:
             None if scale is None else
             torch.as_tensor(scale, dtype=torch.float32, device=self.device))
         self._quant[precision] = self._slot_of(qc)
+        if self.cache is not None:
+            self.cache.invalidate_segment(self.cache_ns)
 
     def _dispatch_scan(self, qv, lo, hi, idx, bucket: int, pad_q: int,
                        k: int, ef: int, *, calibrate_wall: bool,
@@ -370,30 +477,39 @@ class SearchSubstrate:
         self._warm.add(sig)
         dev = self.device
         t0 = time.perf_counter()
-        st_j = torch.as_tensor(starts, device=dev)
-        ln_j = torch.as_tensor(lens, device=dev)
-        qp_j = torch.as_tensor(qp, device=dev)
-        if slot is None:
-            ids, d = range_scan(self._scan_corpus(), st_j, ln_j, qp_j,
-                                bucket=bucket, k=k, live=live_row)
-        else:
-            # the quantized scan keeps rerank_depth survivors (tombstoned
-            # rows are masked in the kernel, so the pool is live-only) ...
-            rq = rerank_depth(k, ef, cap=self.tb)
-            ids_q, _ = range_scan(slot["data_pad"], st_j, ln_j, qp_j,
-                                  bucket=bucket, k=rq,
-                                  scale=slot["scale_pad"], live=live_row)
-            # ... and an f32 rescore of those ids restores the exact top-k
-            with maybe_span(trace, "rerank", precision=precision,
-                            rows=pad_q * rq, k=k):
-                ids, d = rerank_pool(self._vecs, ids_q, qp_j[:, :self.d], k,
-                                     use_kernel=True)
+        rq = 0
+        with annotate("rnsg.scan_dispatch"):
+            st_j = torch.as_tensor(starts, device=dev)
+            ln_j = torch.as_tensor(lens, device=dev)
+            qp_j = torch.as_tensor(qp, device=dev)
+            if slot is None:
+                ids, d = range_scan(self._scan_corpus(), st_j, ln_j, qp_j,
+                                    bucket=bucket, k=k, live=live_row)
+            else:
+                # the quantized scan keeps rerank_depth survivors
+                # (tombstoned rows are masked in the kernel, so the pool is
+                # live-only) ...
+                rq = rerank_depth(k, ef, cap=self.tb)
+                ids_q, _ = range_scan(slot["data_pad"], st_j, ln_j, qp_j,
+                                      bucket=bucket, k=rq,
+                                      scale=slot["scale_pad"], live=live_row)
+                # ... and an f32 rescore of those ids restores the exact
+                # top-k
+                with maybe_span(trace, "rerank", precision=precision,
+                                rows=pad_q * rq, k=k):
+                    ids, d = rerank_pool(self._vecs, ids_q,
+                                         qp_j[:, :self.d], k, use_kernel=True)
         units = window_rows(bucket, self.tb)
+        met = self.metrics
 
         def finalize():
             ids_h = ids.cpu().numpy()[:nq]
             d_h = d.cpu().numpy()[:nq]
             dt = time.perf_counter() - t0
+            if met is not None:
+                met.histogram("scan_dispatch_ms").observe(dt * 1e3)
+                if rq:
+                    met.counter("rerank_rows_total").inc(pad_q * rq)
             if calibrate_wall and warm:
                 # pad_q windows of work were done, not nq
                 self.planner.cost.observe_wall("scan", units, dt, pad_q,
@@ -423,18 +539,22 @@ class SearchSubstrate:
         warm = sig in self._warm
         self._warm.add(sig)
         t0 = time.perf_counter()
-        ids, d, st = beam_search_batch(
-            self._vecs, self._nbrs, torch.as_tensor(qv[pad], device=dev),
-            torch.as_tensor(lo[pad], device=dev),
-            torch.as_tensor(hi[pad], device=dev),
-            entry, k=k, ef=max(ef, k), use_kernel=use_kernel,
-            beam_width=beam_width, quant=quant, live=live_b)
+        with annotate("rnsg.beam_dispatch"):
+            ids, d, st = beam_search_batch(
+                self._vecs, self._nbrs, torch.as_tensor(qv[pad], device=dev),
+                torch.as_tensor(lo[pad], device=dev),
+                torch.as_tensor(hi[pad], device=dev),
+                entry, k=k, ef=max(ef, k), use_kernel=use_kernel,
+                beam_width=beam_width, quant=quant, live=live_b)
+        met = self.metrics
 
         def finalize():
             ids_h = ids.cpu().numpy()[:nq]
             d_h = d.cpu().numpy()[:nq]
             st_h = {kk: vv.cpu().numpy()[:nq] for kk, vv in st.items()}
             dt = time.perf_counter() - t0
+            if met is not None:
+                met.histogram("beam_dispatch_ms").observe(dt * 1e3)
             if calibrate:
                 self.planner.cost.update_beam(float(st_h["ndist"].mean()), ef,
                                               beam_width=beam_width)

@@ -32,7 +32,8 @@ REF_COLUMNS = {
     "kernels": ["kernel", "shape", "us_per_call", "gflops_at_wall",
                 "tpu_roofline_us"],
 }
-for _name in ("planner", "search_substrate", "beam_width", "quantized"):
+for _name in ("planner", "search_substrate", "beam_width", "quantized",
+              "async_cache", "streaming", "wal"):
     with open(ROOT / "results" / "bench" / f"{_name}.csv") as _f:
         REF_COLUMNS[_name] = next(csv.reader(_f))
 
@@ -68,6 +69,8 @@ def _run(name, methods):
         return rt.bench_scalability(D, NQ, True, "cpu")
     if name == "kernels":
         return rt.bench_kernels(True, "cpu")
+    if name == "wal":
+        return rt.bench_wal(N, D, True, "cpu")
     return getattr(rt, f"bench_{name}")(N, D, NQ, True, "cpu")
 
 
@@ -92,10 +95,28 @@ def test_bench_writes_the_reference_columns(name, methods, results):
         assert {r["kernel"] for r in rows} == {
             "l2dist", "l2dist_ref", "gather_dist", "gather_dist_ref"}
         assert all(r["device"] == "cpu" and r["bound_us"] > 0 for r in rows)
-    if name in ("search_substrate", "beam_width", "quantized"):
+    if name in ("search_substrate", "beam_width", "quantized", "streaming",
+                "wal"):
         stem = {"search_substrate": "substrate", "beam_width": "beam",
-                "quantized": "quant"}[name]
+                "quantized": "quant", "streaming": "stream",
+                "wal": "wal"}[name]
         assert (results / f"BENCH_pt_{stem}.json").exists()
+    if name == "async_cache":
+        # the cache rows only: the reference's async_local_8shard rows need
+        # the multi-device slice
+        assert [(r["method"], r["plan"]) for r in rows] == [
+            ("cache_repeat", "graph"), ("cache_repeat", "auto")]
+        assert all(r["identical"] and r["detail"] == f"hits={NQ}"
+                   for r in rows)
+    if name == "streaming":
+        assert [r["delta_frac_target"] for r in rows] == [0.0, 0.01, 0.05,
+                                                          0.2]
+        assert all(r["recall"] == 1.0 for r in rows)   # ef=64 >= every range
+    if name == "wal":
+        assert [r["sync"] for r in rows] == ["nowal", "none", "batch",
+                                             "always"]
+        always = rows[-1]
+        assert always["fsyncs"] >= always["ops"] and rows[0]["fsyncs"] == 0
 
 
 def test_recall_at_k_equals_the_reference_on_its_edge_cases():
@@ -114,9 +135,12 @@ def test_recall_at_k_equals_the_reference_on_its_edge_cases():
                           found_dists=fd) == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("only", ["mesh_auto", "async_cache", "streaming",
-                                  "build", "wal", "kernels,wal", "bogus"])
+@pytest.mark.parametrize("only", ["mesh_auto", "async_cache,mesh_auto",
+                                  "streaming,build", "build", "wal,bogus",
+                                  "kernels,mesh_auto", "bogus"])
 def test_unported_or_unknown_bench_exits_non_zero(only, results, capsys):
+    """A run that asks for any pending or unknown bench refuses the whole
+    run, ported benches beside it included."""
     assert rt.main(["--only", only, "--device", "cpu"]) != 0
     out = capsys.readouterr()
     assert "name,us_per_call" not in out.out          # no empty table

@@ -50,7 +50,12 @@ def test_port_modules_all_present():
             "planner/planner.py", "obs/trace.py", "search/substrate.py",
             "core/rfann.py", "kernels/quantize.py", "csrc/range_scan.cu",
             "csrc/gather_dist.cu", "csrc/corpus.cuh", "csrc/topk_key.cuh",
-            "kernels/l2dist.py", "csrc/l2dist.cu", "index/baselines.py"]
+            "kernels/l2dist.py", "csrc/l2dist.cu", "index/baselines.py",
+            "obs/metrics.py", "obs/export.py", "obs/profiler.py",
+            "search/cache.py", "index/io.py", "serving/engine.py",
+            "streaming/wal.py", "streaming/delta.py",
+            "streaming/streaming.py", "runtime/fault_tolerance.py",
+            "launch/serve.py"]
     assert [p for p in want if not (PORT / p).exists()] == []
 
 
@@ -131,3 +136,25 @@ def test_kernel_library_name_follows_source_hash(tmp_path, monkeypatch):
         f.write("\n// edit\n")
     assert _build.target("gather_dist") != before["gather_dist"]
     assert _build.target("gather_dist").parent == _build.BUILD_DIR
+
+
+def test_serving_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The streaming index, the index directory restore and the serve
+    launcher default to the card too."""
+    from repro_torch.core.rfann import RNSGIndex
+    from repro_torch.data.ann import make_attrs, make_vectors
+    from repro_torch.index import io
+    from repro_torch.launch import serve
+    from repro_torch.streaming import DeltaView, StreamingRFANN
+    v, a = make_vectors(64, 4), make_attrs(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingRFANN(v, a, m=4, ef_spatial=4, ef_attribute=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeltaView.empty(4)
+    RNSGIndex.build(v, a, m=4, ef_spatial=4, ef_attribute=4,
+                    device="cpu").save(str(tmp_path / "d"), shards=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        io.load_index(tmp_path / "d")
+    assert io.load_index(tmp_path / "d", device="cpu").g.n == 64
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--n", "64", "--dim", "4", "--requests", "8"])
