@@ -18,11 +18,13 @@ installs that quantized copy after the build (untimed) and searches with
 ``precision=`` (the quantized scan or beam, then the f32 rerank); the
 default, f32, is the f32 part of the full phase.
 
-Prints each pass's QPS per path, then per path the median QPS of each tree,
-the ratio B/A, whether the two trees returned the same ids, and the scan
+Prints each pass's QPS per path, then per path the median QPS of each tree
+with its quartiles, the ratio B/A of the medians, the median and quartiles
+of the per-pair ratios (pass i of A against pass i of B, which run side by
+side), whether the two trees returned the same ids, and the scan
 share; the last line is one JSON object with all of it (also written to
 ``chiprun_out/ab_qps.json``, or ``ab_qps-<precision>.json`` for a quantized
-precision).  Needs one CUDA card.
+precision, with ``-<tag>`` before ``.json`` when ``--tag`` is given).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -155,6 +157,9 @@ def main() -> int:
     ap.add_argument("--precision", default="f32",
                     choices=("f32", "int8", "bf16"),
                     help="the scoring precision of every path")
+    ap.add_argument("--tag", default="",
+                    help="suffix of the JSON file's name (several runs in "
+                         "one command)")
     args = ap.parse_args()
     if args.worker:
         return worker(args.worker, args.n, args.nq, args.seed, 64,
@@ -196,10 +201,16 @@ def main() -> int:
         same = float(np.mean([np.array_equal(np.asarray(ra[p]["ids"]),
                                              np.asarray(rb[p]["ids"]))
                               for ra, rb in zip(passes["A"], passes["B"])]))
+        # pass i of A and pass i of B run next to each other (A B | B A)
+        pair = np.asarray(qb) / np.asarray(qa)
         summary[p] = dict(
             qps_a=qa, qps_b=qb, median_a=float(np.median(qa)),
             median_b=float(np.median(qb)),
+            quartiles_a=np.percentile(qa, [25, 75]).tolist(),
+            quartiles_b=np.percentile(qb, [25, 75]).tolist(),
             ratio_b_over_a=float(np.median(qb) / np.median(qa)),
+            pair_ratios=pair.tolist(),
+            pair_ratio_quartiles=np.percentile(pair, [25, 50, 75]).tolist(),
             passes_with_equal_ids=same,
             recall_a=passes["A"][0][p]["recall"],
             recall_b=passes["B"][0][p]["recall"],
@@ -208,9 +219,16 @@ def main() -> int:
             launches_a=passes["A"][0][p]["launches"],
             launches_b=passes["B"][0][p]["launches"])
         s = summary[p]
+        qa1, qa3 = s["quartiles_a"]
+        qb1, qb3 = s["quartiles_b"]
+        r1, r2, r3 = s["pair_ratio_quartiles"]
         print(f"[ab] {p}: A median {s['median_a']:.1f} "
-              f"[{min(qa):.1f}, {max(qa):.1f}]  B median {s['median_b']:.1f} "
-              f"[{min(qb):.1f}, {max(qb):.1f}]  B/A {s['ratio_b_over_a']:.3f}"
+              f"[{min(qa):.1f}, {max(qa):.1f}] (quartiles {qa1:.1f}, "
+              f"{qa3:.1f})  B median {s['median_b']:.1f} "
+              f"[{min(qb):.1f}, {max(qb):.1f}] (quartiles {qb1:.1f}, "
+              f"{qb3:.1f})  B/A {s['ratio_b_over_a']:.3f}  paired B/A "
+              f"median {r2:.3f} (quartiles {r1:.3f}, {r3:.3f}, "
+              f"{int((pair > 1).sum())}/{len(pair)} pairs above 1)"
               f"  equal ids in {same * 100:.0f}% of paired passes  recall "
               f"{s['recall_a']:.4f}/{s['recall_b']:.4f}  scan share "
               f"{s['scan_share_a']:.3f}/{s['scan_share_b']:.3f}")
@@ -219,8 +237,9 @@ def main() -> int:
                   seconds=time.perf_counter() - t0, paths=summary)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    name = ("ab_qps.json" if args.precision == "f32"
-            else f"ab_qps-{args.precision}.json")
+    name = "-".join(["ab_qps"] + [x for x in (
+        "" if args.precision == "f32" else args.precision, args.tag)
+        if x]) + ".json"
     (out / name).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0

@@ -7,8 +7,13 @@ table/figure, the counterpart of ``benchmarks/run.py`` over ``repro_torch``.
 Prints ``name,us_per_call,derived`` CSV summary lines (full per-point tables
 land in results/bench_torch/*.csv).  Every index is built and searched on
 ``--device`` (default the card; ``cpu`` runs the kernels' plain PyTorch
-versions, and its times are CPU times).  The benches of paths the port has
-not reached yet (``PENDING``) exit non-zero when asked for.
+versions, and its times are CPU times).  An unknown bench name exits
+non-zero.
+
+``mesh_auto``, ``build`` and ``async_cache``'s ``async_local_8shard`` rows
+run the multi-device path: their shards are placed round-robin on
+``--device``, so on one card all eight shards share it (the reference
+re-execs itself with eight fake host devices instead).
 
 The paper's tables (``qps_recall`` through ``quantized``) time RNSG's plain
 beams (``use_kernel=False``), the path the baselines' searches share and
@@ -34,6 +39,7 @@ from benchmarks.common_torch import (build_methods, build_seconds, dataset,
 from repro_torch.core.rfann import RNSGIndex
 from repro_torch.data.ann import mixed_workload, selectivity_ranges
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import make_mesh
 
 #: H100 SXM peaks for the kernel bounds: HBM3 bytes/s, f32 FLOP/s outside
 #: the tensor cores
@@ -511,13 +517,18 @@ def bench_kernels(quick, device):
 
 
 def bench_async_cache(n, d, nq, quick, device):
-    """Cached search substrate: repeat-query QPS with the ``SearchCache``
-    installed (second pass: every row a hit, zero device work) vs the
-    uncached substrate, per plan, flagging whether the hits are
-    bit-identical to the dispatch that populated them.  The reference's
-    ``async_local_8shard`` rows run its multi-device ``DistributedRFANN``,
-    which arrives with the multi-device slice of the port."""
+    """Async + cached search substrate:
+
+    * cache rows — repeat-query QPS with the ``SearchCache`` installed
+      (second pass: every row a hit, zero device work) vs the uncached
+      substrate, per plan, flagging whether the hits are bit-identical to
+      the dispatch that populated them;
+    * async rows — the 8-shard ``DistributedRFANN`` local path with async
+      per-shard dispatch (enqueue every shard, copy back at the merge) vs
+      the sequential dispatch+block loop, flagging identical merged top-k.
+    """
     from repro_torch.search import SearchCache
+    from repro_torch.serving.distributed import DistributedRFANN
 
     vecs, attrs = dataset(n, d)
     m = 24 if quick else 48
@@ -548,7 +559,135 @@ def bench_async_cache(n, d, nq, quick, device):
                          speedup=round(c_qps / max(u_qps, 1e-9), 2),
                          identical=identical,
                          detail=f"hits={c_st['cache_hits']}"))
+    n8 = n - n % 8
+    dist = DistributedRFANN(vecs[:n8], attrs[:n8], n_shards=8, m=m,
+                            ef_spatial=m, ef_attribute=2 * m, device=device)
+    # paired best-of-8: each repeat times both modes back to back, so the
+    # bests come from the same windows of host load
+    for plan in ("graph", "auto"):
+        results, best = {}, {False: np.inf, True: np.inf}
+        for mode in (False, True):              # build the kernels first
+            dist.async_dispatch = mode
+            dist.search(qv, ranges, k=k, ef=ef, plan=plan)
+        for _ in range(8):
+            for mode in (False, True):
+                dist.async_dispatch = mode
+                t0 = time.perf_counter()
+                results[mode] = dist.search(qv, ranges, k=k, ef=ef, plan=plan)
+                best[mode] = min(best[mode], time.perf_counter() - t0)
+        (s_ids, s_d), (a_ids, a_d) = results[False], results[True]
+        s_qps, a_qps = nq / best[False], nq / best[True]
+        identical = bool(np.array_equal(s_ids, a_ids)
+                         and np.array_equal(s_d, a_d))
+        rows.append(dict(method="async_local_8shard", plan=plan,
+                         qps_base=round(s_qps, 1), qps_new=round(a_qps, 1),
+                         speedup=round(a_qps / max(s_qps, 1e-9), 2),
+                         identical=identical, detail="seq->async"))
     emit("async_cache", rows, quiet=True)
+    return rows
+
+
+def bench_mesh_auto(n, d, nq, quick, device):
+    """Mesh-path strategy routing: ``DistributedRFANN(plan="auto")`` vs the
+    graph-only mesh path on an 8-shard mesh over ``device`` (one card holds
+    every shard) across selectivity regimes."""
+    from repro_torch.search import rank_interval
+    from repro_torch.serving.distributed import DistributedRFANN
+    shards = 8
+    n -= n % shards                       # corpus must be a shard multiple
+    vecs, attrs = dataset(n, d)
+    m = 16 if quick else 32
+    mesh = make_mesh(shards, [device])
+    dist = DistributedRFANN(vecs, attrs, n_shards=shards, mesh=mesh,
+                            m=m, ef_spatial=m, ef_attribute=2 * m)
+    k, ef = 10, 64
+    wls = {"narrow_1pct": 0.01, "medium_10pct": 0.10, "wide_50pct": 0.50}
+    rows = []
+    for wname, frac in wls.items():
+        ranges = selectivity_ranges(attrs, nq, frac, seed=29)
+        qv = dataset(nq, d, seed=91)[0]
+        gt = gt_for(vecs, attrs, qv, ranges, k, device)
+        lo, hi = rank_interval(dist.attrs_sorted, ranges)
+        strat, _ = dist.mesh_substrate.plan_strategies(lo, hi, k=k, ef=ef,
+                                                       mode="auto")
+        scan_frac = round(float((strat == 0).mean()), 3)
+        for plan in ("graph", "auto"):
+            (ids, _), qps = timed_search(dist, qv, ranges, k, ef, plan=plan)
+            rows.append(dict(method=f"mesh_{plan}", workload=wname, ef=ef,
+                             recall=round(recall_at_k(np.asarray(ids), gt), 4),
+                             qps=round(qps, 1),
+                             scan_frac=scan_frac if plan == "auto" else "",
+                             devices=len(mesh.distinct), shards=shards))
+    emit("mesh_auto", rows, quiet=True)
+    return rows
+
+
+def bench_build(n, d, quick, device):
+    """Sharded construction + persistence: build wall vs shard count (with
+    bit-identity to the single-device build flagged per point), and the
+    directory-format save/restore wall vs a rebuild.  Every slab runs on
+    ``device``, so the walls do not drop with S here."""
+    from repro_torch.core.build_sharded import build_rnsg_sharded
+    from repro_torch.core.construction import build_rnsg
+    from repro_torch.index import io as index_io
+
+    vecs, attrs = dataset(n, d)
+    m = 16 if quick else 32
+    t0 = time.perf_counter()
+    ref = build_rnsg(vecs, attrs, m=m, ef_spatial=m, ef_attribute=2 * m,
+                     device=device)
+    t_single = time.perf_counter() - t0
+    want = ref.arrays()
+    rows = [dict(method="build_single", shards=1,
+                 seconds=round(t_single, 3), restore_seconds="",
+                 identical=1)]
+    build_curve = {}
+    identical_all = True
+    for shards in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        g = build_rnsg_sharded(vecs, attrs, mesh=make_mesh(shards, [device]),
+                               m=m, ef_spatial=m, ef_attribute=2 * m)
+        dt = time.perf_counter() - t0
+        got = g.arrays()
+        same = all(np.array_equal(got[f], want[f]) for f in want)
+        identical_all &= same
+        build_curve[str(shards)] = round(dt, 3)
+        rows.append(dict(method="build_sharded", shards=shards,
+                         seconds=round(dt, 3), restore_seconds="",
+                         identical=int(same)))
+
+    idx = RNSGIndex(ref)
+    idx.install_quantized("int8")
+    persist = {}
+    with tempfile.TemporaryDirectory() as td:
+        for shards in (1, 8):
+            p = str(Path(td) / f"idx{shards}")
+            t0 = time.perf_counter()
+            index_io.save_index(idx, p, shards=shards)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = index_io.load_index(p, device=device)
+            t_restore = time.perf_counter() - t0
+            assert torch.equal(got.g.nbrs.cpu(), ref.nbrs.cpu())
+            persist[str(shards)] = dict(save_seconds=round(t_save, 3),
+                                        restore_seconds=round(t_restore, 3))
+            rows.append(dict(method="persist", shards=shards,
+                             seconds=round(t_save, 3),
+                             restore_seconds=round(t_restore, 3),
+                             identical=1))
+    emit("build", rows, quiet=True)
+    t_restore_best = min(p["restore_seconds"] for p in persist.values())
+    emit_bench_json("build", dict(
+        n=n, d=d, m=m, devices=1, device=str(device),
+        single_host_build_seconds=round(t_single, 3),
+        sharded_build_seconds=build_curve,
+        bit_identical_all_shard_counts=bool(identical_all),
+        persist=persist,
+        restore_speedup_vs_rebuild=round(
+            t_single / max(t_restore_best, 1e-9), 1),
+        speedup_note="every slab runs on the one device, so the sharded "
+                     "walls do not drop with S; across cards the KNN "
+                     "products and the prune split by slab"))
     return rows
 
 
@@ -683,11 +822,9 @@ def bench_wal(n, d, quick, device):
 
 
 ALL = ["qps_recall", "construction_time", "index_size", "param_sensitivity",
-       "vary_k", "scalability", "planner", "search_substrate", "async_cache",
-       "beam_width", "quantized", "streaming", "kernels", "wal"]
-#: benches of ``benchmarks/run.py`` whose paths the port has not reached
-PENDING = {"mesh_auto": "the multi-device slice",
-           "build": "the multi-device slice (sharded build)"}
+       "vary_k", "scalability", "planner", "search_substrate", "mesh_auto",
+       "async_cache", "beam_width", "quantized", "streaming", "kernels",
+       "build", "wal"]
 
 
 def main(argv=None) -> int:
@@ -702,13 +839,8 @@ def main(argv=None) -> int:
     d = 32 if quick else 64
     nq = 200 if quick else 1000
     only = set(args.only.split(",")) if args.only else set(ALL)
-    pending = sorted(only & set(PENDING))
-    unknown = sorted(only - set(ALL) - set(PENDING))
-    if pending or unknown:
-        for b in pending:
-            print(f"run_torch: bench {b!r} is not ported yet (it arrives "
-                  f"with {PENDING[b]}); run it with benchmarks.run",
-                  file=sys.stderr)
+    unknown = sorted(only - set(ALL))
+    if unknown:
         for b in unknown:
             print(f"run_torch: unknown bench {b!r}; choose from "
                   f"{','.join(ALL)}", file=sys.stderr)
@@ -775,6 +907,21 @@ def main(argv=None) -> int:
         print(f"search_substrate,{1e6/post['qps']:.1f},"
               f"narrow_early_out_speedup="
               f"{post['qps']/max(pre['qps'],1e-9):.2f}x")
+    if "mesh_auto" in only:
+        rows = bench_mesh_auto(n, d, nq, quick, device)
+        print("method,workload,ef,recall,qps,scan_frac,devices,shards")
+        for r in rows:
+            print(f"{r['method']},{r['workload']},{r['ef']},{r['recall']},"
+                  f"{r['qps']},{r['scan_frac']},{r['devices']},{r['shards']}")
+        na = next(r for r in rows if r["method"] == "mesh_auto"
+                  and r["workload"] == "narrow_1pct")
+        ng = next(r for r in rows if r["method"] == "mesh_graph"
+                  and r["workload"] == "narrow_1pct")
+        print(f"mesh_auto,{1e6/float(na['qps']):.1f},"
+              f"narrow_speedup_vs_mesh_graph="
+              f"{float(na['qps'])/max(float(ng['qps']),1e-9):.2f}x"
+              f"_narrow_recall={na['recall']}vs{ng['recall']}"
+              f"_narrow_scan_frac={na['scan_frac']}")
     if "async_cache" in only:
         rows = bench_async_cache(n, d, nq, quick, device)
         print("method,plan,qps_base,qps_new,speedup,identical,detail")
@@ -783,9 +930,12 @@ def main(argv=None) -> int:
                   f"{r['speedup']},{r['identical']},{r['detail']}")
         cg = next(r for r in rows if r["method"] == "cache_repeat"
                   and r["plan"] == "graph")
+        ag = next(r for r in rows if r["method"] == "async_local_8shard"
+                  and r["plan"] == "auto")
         print(f"async_cache,{1e6/float(cg['qps_new']):.1f},"
               f"cache_repeat_speedup={cg['speedup']}x"
-              f"_identical={cg['identical']}")
+              f"_identical={cg['identical']}"
+              f"_async_vs_seq={ag['speedup']}x")
     if "beam_width" in only:
         rows = bench_beam_width(n, d, nq, quick, device)
         print("workload,beam_width,ef,qps,recall,ndist,hops")
@@ -833,6 +983,20 @@ def main(argv=None) -> int:
             print(f"kernel_{r['kernel']},{r['us_per_call']},"
                   f"shape={r['shape']}_bound_us={r['bound_us']}"
                   f"_library_us={r['library_us']}_device={r['device']}")
+    if "build" in only:
+        rows = bench_build(n, d, quick, device)
+        print("method,shards,seconds,restore_seconds,identical")
+        for r in rows:
+            print(f"{r['method']},{r['shards']},{r['seconds']},"
+                  f"{r['restore_seconds']},{r['identical']}")
+        single = next(r for r in rows if r["method"] == "build_single")
+        best = min(float(r["restore_seconds"]) for r in rows
+                   if r["method"] == "persist")
+        ident = all(int(r["identical"]) for r in rows)
+        print(f"build,{float(single['seconds'])*1e6:.0f},"
+              f"restore_speedup_vs_rebuild="
+              f"{float(single['seconds'])/max(best,1e-9):.1f}x"
+              f"_bit_identical={ident}")
     if "wal" in only:
         rows = bench_wal(n, d, quick, device)
         print("sync,ops,ops_per_s,us_per_op,fsyncs,wal_bytes")

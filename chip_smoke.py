@@ -68,14 +68,38 @@ Phases, each printing its lines:
              checkpoint to the acknowledged live set; then the delta scan
              (range_scan at bucket = the delta's capacity) against its
              plain version at capacities 128 .. 8192;
-8. witness — an n = 100,000 build and graph search on the card, written to
+8. mesh    — multi-device serving and the sharded build, 8 shards of the
+             full phase's corpus, all on the first card:
+             ``RNSGIndex.build_sharded(n_shards=8)`` at n × 128 must be
+             bit-equal to the full phase's ``build_rnsg`` graph; two
+             ``DistributedRFANN(n_shards=8)`` (local, and on an 8-shard
+             mesh) answer the full phase's 1,000 queries in batches of 64.
+             First the local async and sequential paths as deployed (each
+             shard's own int8 scale, each planner its own calibration):
+             QPS, scan share and launches, each launching its fused beam
+             (gather_rerank at int8) and never a gather kernel or the
+             lockstep loop.  Then, with the local shards on the mesh's
+             joint int8 copy and every planner on one calibration state,
+             the local async, local sequential and mesh paths at
+             plan auto / graph, bw 1 / 4, f32 / int8, plus a plain pass
+             (f32, bw 1, auto, use_kernel off): async must equal
+             sequential, mesh equal local (under auto on the queries both
+             route alike on every shard they touch), the kernel path equal
+             the plain pass, each on >= 99 % of queries up to near-ties;
+             scan-routed queries exact; launches per path (each kernel path
+             its fused beam, range_scan under auto, gather_rerank at int8,
+             never a gather kernel or the lockstep loop); then the launcher
+             with --build-shards 8 at 100,000 × 128, 1,024 requests: its
+             graph equal to ``build_rnsg``'s, its recall within 0.01 of
+             ``RNSGIndex.search`` under the served routing;
+9. witness — an n = 100,000 build and graph search on the card, written to
              ``chiprun_out/witness_n100000.npz``, and the bench's segment
              tree built and searched at n = 8,192 (its upper levels through
              segment_knn's sliced branch), written to
              ``chiprun_out/witness_segtree_n8192.npz``, for
              ``scale_witness.py``, which holds each against the JAX
              reference on the CPU;
-9. bench   — the paper's benchmark path through ``benchmarks.run_torch``
+10. bench  — the paper's benchmark path through ``benchmarks.run_torch``
              at n = 100,000 × d = 128 (cut from 1M; ``--bench-n``,
              ``--bench-nq``) with ``build_methods(quick=False)``: RNSG,
              MRNG in-filter and post-filter, segment tree and brute force
@@ -90,13 +114,15 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-10. device times — range_scan's, gather_rerank's and l2dist's timed parity
-             shapes again,
+11. device times — range_scan's, gather_rerank's and l2dist's timed parity
+             shapes again, and one batch of the mesh phase's mesh and
+             local async paths (their idle share),
              under torch.profiler: device time and device launches per
              call (last, because a profiler session slows the host-side
              torch ops of every later phase);
-11. the ``{"kernels": [...]}`` line;
-12. the last line ``{"ok": true, "device": {...}}``.
+12. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
+    path under ``mesh_launches``);
+13. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -186,7 +212,10 @@ def _device_ms(fn, calls: int = 10):
         torch.cuda.synchronize()
     kernels, launches = {}, 0
     for e in p.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count:
+        # the substrates' rnsg.* spans come back as device-side annotations
+        # covering the kernels they enclose: not kernels
+        if (e.device_type == DeviceType.CUDA and e.count
+                and not e.key.startswith("rnsg.")):
             per_call = max(1, round(e.count / calls))
             kernels[e.key] = (e.self_device_time_total / 1e3 / e.count
                               * per_call)
@@ -936,9 +965,12 @@ def phase_full(n, nq, batch, seed, ops):
         print(f"[full] graph bw4_kernel ef={ef}: qps={nq / dt:.1f} "
               f"recall@10={sweep[ef]['recall']:.4f} recall_by_level=" +
               ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
+    held = dict(graph=idx.g.arrays(), base=base, attrs=attrs, qv=qv,
+                ranges=ranges, level=level, gt=gt, gd=gd)
     return dict(build=st, install_quantized_s=install, configs=summary,
                 launches=launches, dispatches=dispatches,
-                graph_ef_sweep=sweep, beam=beam, batch=batch, nq=nq, n=n)
+                graph_ef_sweep=sweep, beam=beam, batch=batch, nq=nq,
+                n=n), held
 
 
 def phase_beam(idx, qv, ranges):
@@ -1651,6 +1683,492 @@ def phase_stream(n, tmp: Path, ops, nreq=8192, max_delta=4000,
     return first
 
 
+#: the mesh phase: shards of the full corpus, all on the first card (the
+#: reference's own shard count: benchmarks/run.py, tests/test_multidevice.py)
+MESH_SHARDS = 8
+MESH_PATHS = ("async", "seq", "mesh")
+
+
+def _agree(ia, da, ib, db, atol) -> np.ndarray:
+    """Per row: equal ids, or ids that differ only at near-ties (positions
+    whose two distances agree within ``_compare``'s tolerance)."""
+    diff = ia != ib
+    tie = np.isclose(da, db, rtol=1e-4, atol=atol) & np.isfinite(da)
+    return ~(diff & ~tie).any(1)
+
+
+def _local_routing(dist, lo, hi, k, ef, bw, prec) -> np.ndarray:
+    """(S, Q) strategy each local shard's planner gives each query from its
+    current state (empty clips route to the scan, as ``plan_batch`` does)."""
+    from repro_torch.search import clip_interval
+    out = []
+    for s, sub in enumerate(dist.substrates):
+        slo, shi = clip_interval(lo, hi, s * dist.per, dist.per)
+        lens = np.clip(shi.astype(np.int64) - slo + 1, 0, None)
+        out.append(sub.planner.choose_strategy_batch(
+            lens, k=k, ef=ef, beam_width=bw, precision=prec))
+    return np.stack(out)
+
+
+def _enqueue_without_sync(dist, qv, lo, hi, **kw):
+    """The local async path's enqueue — every shard's
+    ``dispatch(defer=True)`` — under ``torch.cuda.set_sync_debug_mode
+    ("error")``: a host sync before the merge (``.cpu()``, ``.item()``,
+    ``nonzero``, a pageable copy) raises.  Returns the shards' results."""
+    import torch
+    from repro_torch.search import SearchRequest, clip_interval
+    pending = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for s, sub in enumerate(dist.substrates):
+            slo, shi = clip_interval(lo, hi, s * dist.per, dist.per)
+            pending.append(sub.dispatch(SearchRequest(
+                queries=qv, lo=slo, hi=shi, use_kernel=True, **kw),
+                defer=True))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [p.result() for p in pending]
+
+
+def _mesh_name(path, prec, bw, plan):
+    return f"{path}_{prec}_bw{bw}_{plan}"
+
+
+def _mesh_local_own(local, qv, ranges, gt, ops, batch):
+    """The local async and sequential paths of ``local`` as deployed (its
+    shards' own int8 scales, its planners' own calibration), at plan auto /
+    graph, bw 1 / 4, f32 / int8: every planner reset to its post-build
+    state before each path, launches zeroed just before each call and read
+    just after.  Each path must launch its fused beam (and gather_rerank
+    at int8), never a gather kernel or the lockstep loop.  Returns
+    {"summary": per path QPS, recall, scan share, launches per batch;
+    "launches": per path totals}."""
+    from repro_torch.data.ann import recall_at_k
+    from repro_torch.planner import SCAN
+    local.install_quantized("int8")
+    built = [json.dumps(sub.planner.cost.state_dict())
+             for sub in local.substrates]
+    nq = len(qv)
+    batches = -(-nq // batch)
+    summary, totals = {}, {}
+    lockstep, undo = _lockstep_counter()
+    try:
+        for prec in ("f32", "int8"):
+            for bw in (1, 4):
+                for plan in ("auto", "graph"):
+                    for path in ("async", "seq"):
+                        name = "own_" + _mesh_name(path, prec, bw, plan)
+                        for sub, st in zip(local.substrates, built):
+                            sub.planner.cost.load_state_dict(json.loads(st))
+                        local.async_dispatch = path == "async"
+                        lockstep.clear()
+                        got = dict.fromkeys(ops.LAUNCHES, 0)
+                        secs, ids, scan = 0.0, [], []
+                        for b0 in range(0, nq, batch):
+                            lo_b, hi_b = local.rank_range(
+                                ranges[b0:b0 + batch])
+                            if plan == "auto":
+                                scan.append((_local_routing(
+                                    local, lo_b, hi_b, 10, 64, bw, prec)
+                                    == SCAN).all(0))
+                            ops.reset_launches()
+                            t1 = time.perf_counter()
+                            res = local.search_ranks(
+                                qv[b0:b0 + batch], lo_b, hi_b, k=10, ef=64,
+                                plan=plan, beam_width=bw, precision=prec)
+                            secs += time.perf_counter() - t1
+                            for kern, c in ops.LAUNCHES.items():
+                                got[kern] += c
+                            ids.append(res.ids)
+                        beam = f"{('beam_single', 'beam_batched')[bw > 1]}" \
+                               f".{prec}"
+                        need = [beam] + (["gather_rerank"] if prec != "f32"
+                                         else [])
+                        zero = [f"{g}.{p}" for g in ("gather_dist",
+                                                     "gather_topk",
+                                                     "beam_single",
+                                                     "beam_batched",
+                                                     "range_scan")
+                                for p in PRECISIONS
+                                if p != prec or g in ("gather_dist",
+                                                      "gather_topk")] + (
+                            ["gather_rerank"] if prec == "f32" else [])
+                        _need_launches(f"mesh {name}", got, need, zero)
+                        if lockstep:
+                            raise AssertionError(f"mesh {name}: the lockstep "
+                                                 f"loop ran {len(lockstep)} "
+                                                 f"times")
+                        nz = {k: v for k, v in got.items() if v}
+                        share = (float(np.concatenate(scan).mean()) if scan
+                                 else 0.0)
+                        rec = recall_at_k(np.concatenate(ids), gt)
+                        summary[name] = dict(
+                            qps=nq / secs, seconds=secs, recall=rec,
+                            scan_share=share, launches=nz,
+                            launches_per_batch={k: v / batches
+                                                for k, v in nz.items()})
+                        totals[name] = nz
+                        print(f"[mesh] {name} (own scales and calibration): "
+                              f"qps={nq / secs:.1f} recall@10={rec:.4f} "
+                              f"scan_share={share:.3f} launches per batch "
+                              + json.dumps({k: round(v / batches, 3)
+                                            for k, v in nz.items()}))
+    finally:
+        undo()
+    return dict(summary=summary, launches=totals)
+
+
+def phase_mesh(held, tmp: Path, ops, n_serve=100_000, nreq=1024, batch=64):
+    """Multi-device serving and the sharded build, S = 8 shards of the full
+    phase's corpus on the first card: (1) ``RNSGIndex.build_sharded`` at
+    1M × 128, bit-equal to the full phase's ``build_rnsg`` graph; (2)
+    ``DistributedRFANN`` local (async and sequential) and mesh paths over
+    the full phase's queries, each at plan auto / graph, bw 1 / 4, f32 /
+    int8, plus a plain pass (f32, bw 1, auto, ``use_kernel`` off): async
+    equal to sequential, mesh equal to local (on the queries both route
+    alike under auto), the kernel path equal to the plain pass, each on
+    >= 99 % of queries up to near-ties; scan-routed queries exact (all at
+    f32, >= 99 % at int8); launches zeroed just before each call and read
+    just after (each kernel path its fused beam, range_scan under auto,
+    gather_rerank at int8, never the lockstep loop or a gather kernel);
+    (3) the launcher with --build-shards 8 at n_serve × 128: its graph
+    equal to ``build_rnsg``'s, its recall within 0.01 of
+    ``RNSGIndex.search`` under the served routing."""
+    import torch
+    from repro_torch.core.construction import ARRAY_FIELDS, build_rnsg
+    from repro_torch.core.rfann import RNSGIndex
+    from repro_torch.data.ann import (ground_truth, make_attrs, make_vectors,
+                                      mixed_workload, recall_at_k)
+    from repro_torch.parallel.sharding import make_mesh
+    from repro_torch.planner import BEAM, SCAN
+    from repro_torch.serving.distributed import DistributedRFANN
+    S = MESH_SHARDS
+    base, attrs, qv, ranges, level, gt, gd = (
+        held[k] for k in ("base", "attrs", "qv", "ranges", "level", "gt",
+                          "gd"))
+    n, nq = len(base), len(qv)
+    t_phase = time.perf_counter()
+    build_kw = dict(m=32, ef_spatial=32, ef_attribute=48)
+
+    # (1) the sharded build against the full phase's build_rnsg graph
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    g = RNSGIndex.build_sharded(base, attrs, n_shards=S, **build_kw).g
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    got = g.arrays()
+    bad = [f for f in ARRAY_FIELDS
+           if not np.array_equal(got[f], held["graph"][f])]
+    nz = {k: v for k, v in ops.LAUNCHES.items() if v}
+    print(f"[mesh] build_sharded n={n} S={S} in {sharded_s:.2f} s "
+          f"(meta {g.meta}); arrays bit-equal to build_rnsg's: "
+          f"{not bad} {bad}; launches {nz}")
+    if bad:
+        raise AssertionError(f"mesh: build_sharded differs from build_rnsg "
+                             f"in {bad}")
+    del g, got
+    torch.cuda.empty_cache()
+
+    # (2) DistributedRFANN: the local path and the mesh path
+    t0 = time.perf_counter()
+    local = DistributedRFANN(base, attrs, n_shards=S, **build_kw)
+    torch.cuda.synchronize()
+    local_build_s = time.perf_counter() - t0
+    mesh = make_mesh(S)
+    t0 = time.perf_counter()
+    meshd = DistributedRFANN(base, attrs, n_shards=S, mesh=mesh, **build_kw)
+    torch.cuda.synchronize()
+    mesh_build_s = time.perf_counter() - t0
+    for s in range(S):
+        if not (torch.equal(local.nbrs[s], meshd.nbrs[s])
+                and torch.equal(local.order[s], meshd.order[s])):
+            raise AssertionError(f"mesh: shard {s}'s graph differs between "
+                                 f"two builds")
+    print(f"[mesh] DistributedRFANN n={n} S={S} (per={local.per}) built in "
+          f"{local_build_s:.2f} s (local) / {mesh_build_s:.2f} s (mesh, "
+          f"devices {sorted(set(map(str, mesh.devices)))}); shard graphs "
+          f"equal; index_mb={local.index_bytes / 2**20:.1f}")
+    # the local path as users deploy it: each shard's own int8 scale (the
+    # reference's semantics) and each local planner its own calibration,
+    # from its post-build state and learning as the path goes.  The local
+    # paths' QPS and launches per batch are read here; the comparison below
+    # runs them on the mesh's int8 copy and calibration instead.
+    own = _mesh_local_own(local, qv, ranges, gt, ops, batch)
+    # the mesh scales its int8 corpus over all shards jointly, each local
+    # shard over its own rows (as in the reference); the local shards take
+    # the mesh's copy here, so both paths score against one corpus
+    meshd.install_quantized("int8")
+    joint = meshd.mesh_substrate._quant_for("int8")
+    for s, sub in enumerate(local.substrates):
+        sub.preload_quantized("int8", joint["data"][s], joint["scale"][s])
+    atol = 1e-4 * max(1.0, float(np.max(np.sum(
+        base.astype(np.float64) ** 2, axis=1))))
+    configs = [(path, prec, bw, plan, True)
+               for prec in ("f32", "int8") for bw in (1, 4)
+               for plan in ("auto", "graph") for path in MESH_PATHS]
+    configs.append(("plain", "f32", 1, "auto", False))
+    names = [_mesh_name(*c[:4]) for c in configs]
+    ids = {c: [] for c in names}
+    dists = {c: [] for c in names}
+    strat = {c: [] for c in names}
+    secs = dict.fromkeys(names, 0.0)
+    launches = {c: dict.fromkeys(ops.LAUNCHES, 0) for c in names}
+    locksteps = dict.fromkeys(names, 0)
+    routing = {}                    # (prec, bw) -> local (S, nq) routing
+    lo_all, hi_all = local.rank_range(ranges)
+    planners = ([sub.planner for sub in local.substrates]
+                + [meshd.mesh_substrate.planner])
+    start = json.dumps(meshd.mesh_substrate.planner.cost.state_dict())
+    lockstep, undo = _lockstep_counter()
+    try:
+        for b0 in range(0, nq, batch):
+            q_b = qv[b0:b0 + batch]
+            lo_b, hi_b = local.rank_range(ranges[b0:b0 + batch])
+            follow = None
+            for c, name in zip(configs, names):
+                path, prec, bw, plan, uk = c
+                # every path plans this batch from one calibration state,
+                # so the local paths route alike and the mesh path routes
+                # from the same costs
+                for p in planners:
+                    p.cost.load_state_dict(json.loads(start))
+                if plan == "auto" and path == "async":
+                    routing.setdefault((prec, bw), []).append(_local_routing(
+                        local, lo_b, hi_b, 10, 64, bw, prec))
+                local.async_dispatch = path != "seq"
+                dist = meshd if path == "mesh" else local
+                lockstep.clear()
+                ops.reset_launches()      # this path's run, and only it
+                t1 = time.perf_counter()
+                res = dist.search_ranks(q_b, lo_b, hi_b, k=10, ef=64,
+                                        plan=plan, beam_width=bw,
+                                        precision=prec,
+                                        use_kernel=None if uk else False)
+                secs[name] += time.perf_counter() - t1
+                for kern, cnt in ops.LAUNCHES.items():
+                    launches[name][kern] += cnt
+                locksteps[name] += len(lockstep)
+                ids[name].append(res.ids)
+                dists[name].append(res.dists)
+                strat[name].append(res.stats.get(
+                    "strategy", np.full(len(q_b), -1, np.int8)))
+                if follow is None and path == "mesh":
+                    follow = json.dumps(
+                        meshd.mesh_substrate.planner.cost.state_dict())
+            start = follow
+    finally:
+        undo()
+    for c in names:
+        ids[c], dists[c] = np.concatenate(ids[c]), np.concatenate(dists[c])
+        strat[c] = np.concatenate(strat[c])
+    routing = {k: np.concatenate(v, axis=1) for k, v in routing.items()}
+
+    # launches: each kernel path its fused beam, range_scan under auto,
+    # gather_rerank at int8, no gather kernel and no lockstep loop; the
+    # plain pass the lockstep loop and no fused beam
+    beams, gathers = ("beam_single", "beam_batched"), ("gather_dist",
+                                                       "gather_topk")
+    for c, name in zip(configs, names):
+        path, prec, bw, plan, uk = c
+        got = launches[name]
+        beam = f"{beams[bw > 1]}.{prec}"
+        need = ([beam] if uk else []) + (
+            [f"range_scan.{prec}"] if plan == "auto" else []) + (
+            ["gather_rerank"] if prec != "f32" else [])
+        zero = [f"{g}.{p}" for g in gathers + beams + ("range_scan",)
+                for p in PRECISIONS if f"{g}.{p}" not in need] + (
+            ["gather_rerank"] if prec == "f32" else [])
+        if not all(got[k] > 0 for k in need) or any(got[k] for k in zero):
+            raise AssertionError(f"mesh {name}: launches {got} need {need} "
+                                 f"and none of {zero}")
+        if (locksteps[name] > 0) == uk:
+            raise AssertionError(f"mesh {name}: the lockstep loop ran "
+                                 f"{locksteps[name]} times")
+    batches = -(-nq // batch)
+    summary = {}
+    for c, name in zip(configs, names):
+        path, prec, bw, plan, uk = c
+        # scan-routed: the mesh's one decision per query; on the local
+        # paths every shard the query touches routed it to the scan
+        if plan == "graph":
+            scan = np.zeros(nq, bool)
+        elif path == "mesh":
+            scan = strat[name] == SCAN
+        else:
+            scan = (routing[(prec, bw)] == SCAN).all(0)
+        bad = _same_sets(ids[name][scan], gt[scan], gd[scan],
+                         dists[name][scan])
+        exact = 1.0 - len(bad) / max(int(scan.sum()), 1)
+        if (prec == "f32" and bad) or exact < 0.99:
+            raise AssertionError(f"mesh {name}: scan-routed queries not "
+                                 f"exact: "
+                                 f"{np.flatnonzero(scan)[bad][:10].tolist()}")
+        rec = {int(lv): recall_at_k(ids[name][level == lv], gt[level == lv])
+               for lv in np.unique(level)}
+        nz = {k: v for k, v in launches[name].items() if v}
+        per_batch = {k: round(v / batches, 3) for k, v in nz.items()}
+        summary[name] = dict(
+            path=path, precision=prec, beam_width=bw, plan=plan,
+            use_kernel=uk, qps=nq / secs[name], seconds=secs[name],
+            recall=recall_at_k(ids[name], gt), recall_by_level=rec,
+            scan_share=float(scan.mean()), scan_routed=int(scan.sum()),
+            scan_exact=int(scan.sum()) - len(bad), launches=nz,
+            launches_per_batch={k: v / batches for k, v in nz.items()},
+            lockstep_calls=locksteps[name])
+        print(f"[mesh] {name}: qps={nq / secs[name]:.1f} "
+              f"recall@10={summary[name]['recall']:.4f} "
+              f"scan_share={scan.mean():.3f} scan_exact="
+              f"{int(scan.sum()) - len(bad)}/{int(scan.sum())} launches per "
+              f"batch {json.dumps(per_batch)} "
+              f"recall_by_level=" +
+              ",".join(f"2^-{lv}:{r:.3f}" for lv, r in rec.items()))
+
+    def hold(a, b, what, rows=None):
+        ok = _agree(ids[a], dists[a], ids[b], dists[b], atol)
+        exact = (ids[a] == ids[b]).all(1)
+        sel = np.ones(nq, bool) if rows is None else rows
+        share = float(ok[sel].mean()) if sel.any() else 1.0
+        print(f"[mesh] {a} vs {b}: {share * 100:.2f}% of {int(sel.sum())} "
+              f"{what} equal up to near-ties ({exact[sel].mean() * 100:.2f}% "
+              f"exactly); differing rows "
+              f"{np.flatnonzero(sel & ~ok)[:20].tolist()}")
+        if share < 0.99:
+            raise AssertionError(f"mesh: {a} differs from {b} on "
+                                 f"{int((sel & ~ok).sum())} {what}")
+        return share
+    equal = {}
+    for prec in ("f32", "int8"):
+        for bw in (1, 4):
+            for plan in ("auto", "graph"):
+                a, s_, m_ = (_mesh_name(p, prec, bw, plan) for p in MESH_PATHS)
+                equal[f"{a}=={s_}"] = hold(a, s_, "queries")
+                alike = None
+                if plan == "auto":
+                    # a query both paths route alike: the mesh's decision
+                    # on every shard its interval touches
+                    touched = (np.stack([np.clip(np.minimum(
+                        hi_all, (s + 1) * local.per - 1).astype(np.int64)
+                        - np.maximum(lo_all, s * local.per) + 1, 0, None)
+                        for s in range(S)]) > 0)
+                    alike = ((routing[(prec, bw)] == strat[m_][None, :])
+                             | ~touched).all(0)
+                    print(f"[mesh] {m_}: {alike.mean() * 100:.2f}% of "
+                          f"queries routed alike on the mesh and local "
+                          f"paths")
+                    summary[m_]["routed_alike"] = float(alike.mean())
+                    overall = float(_agree(ids[m_], dists[m_], ids[a],
+                                           dists[a], atol).mean())
+                    summary[m_]["equal_to_local_all"] = overall
+                    print(f"[mesh] {m_} vs {a}: {overall * 100:.2f}% of all "
+                          f"{nq} queries equal up to near-ties")
+                equal[f"{m_}=={a}"] = hold(
+                    m_, a, "queries" if alike is None
+                    else "queries routed alike", alike)
+    equal["plain=kernel"] = hold(_mesh_name("async", "f32", 1, "auto"),
+                                 _mesh_name("plain", "f32", 1, "auto"),
+                                 "queries")
+    # the async path enqueues every shard before anything waits on the card
+    lo0, hi0 = local.rank_range(ranges[:batch])
+    for prec, bw, plan in (("f32", 1, "auto"), ("f32", 4, "graph"),
+                           ("int8", 4, "auto")):
+        res = _enqueue_without_sync(local, qv[:batch], lo0, hi0, k=10, ef=64,
+                                    strategy=plan, beam_width=bw,
+                                    precision=prec)
+        print(f"[mesh] local async enqueue of {len(res)} shards ({prec}, "
+              f"bw {bw}, {plan}): no host sync before the merge")
+
+    # the idle share of one mesh batch and one local async batch, read
+    # under torch.profiler after every timed phase (their wall times now)
+    probes = {}
+    for name, dist in (("mesh_f32_bw1_auto", meshd),
+                       ("async_f32_bw1_auto", local)):
+        local.async_dispatch = True
+        fn = functools.partial(dist.search_ranks, qv[:batch], lo0, hi0,
+                               k=10, ef=64, plan="auto")
+        fn()
+        t1 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        probes[name] = dict(wall_ms=(time.perf_counter() - t1) * 100)
+        _device_probe(probes[name], fn, f"mesh phase {name}, one batch "
+                      f"of {batch}")
+
+    # (3) the launcher's sharded build: its graph equal to build_rnsg's,
+    # its recall within 0.01 of RNSGIndex.search under the served routing
+    tmp.mkdir(parents=True, exist_ok=True)
+    d = 128
+    lockstep, undo = _lockstep_counter()
+    try:
+        t1 = time.perf_counter()
+        rec, got_l = _serve(["--device", "cuda", "--n", str(n_serve),
+                             "--dim", str(d), "--requests", str(nreq),
+                             "--build-shards", str(S), "--index-path",
+                             str(tmp / "idx")], ops, [lockstep])
+        serve_wall = time.perf_counter() - t1
+        _need_launches("mesh launcher", got_l,
+                       ["beam_single.f32", "range_scan.f32"],
+                       ["gather_rerank"])
+        if lockstep:
+            raise AssertionError(f"mesh launcher: the lockstep loop ran "
+                                 f"{len(lockstep)} times")
+    finally:
+        undo()
+    vecs = make_vectors(n_serve, d, seed=0)
+    attrs_s = make_attrs(n_serve, seed=0)
+    q_s = make_vectors(nreq, d, seed=7)
+    r_s, _ = mixed_workload(attrs_s, nreq, seed=3)
+    idx = RNSGIndex.load(str(tmp / "idx"), device="cuda")
+    want = build_rnsg(vecs, attrs_s, **build_kw).arrays()
+    got = idx.g.arrays()
+    bad = [f for f in ARRAY_FIELDS if not np.array_equal(got[f], want[f])]
+    if bad:
+        raise AssertionError(f"mesh launcher: --build-shards {S} graph "
+                             f"differs from build_rnsg's in {bad}")
+    order = np.argsort(attrs_s, kind="stable")
+    gt_r, _ = ground_truth(vecs[order], attrs_s[order], q_s, r_s, 10)
+    gt_s = np.where(gt_r >= 0, order[np.maximum(gt_r, 0)], -1)
+    lib = np.full_like(rec["ids"], -1)
+    for plan, code in (("scan", SCAN), ("beam", BEAM)):
+        sel = np.flatnonzero(rec["strategy"] == code)
+        for i in range(0, len(sel), batch):
+            s_ = sel[i:i + batch]
+            lib[s_] = idx.search(q_s[s_], r_s[s_], k=10, ef=64,
+                                 plan=plan).ids
+    lib_rec = recall_at_k(lib, gt_s)
+    summ = rec["summary"]
+    launcher = dict(qps=rec["qps"], recall=rec["recall"],
+                    library_recall=lib_rec, served=rec["served"],
+                    wall_s=serve_wall, launches=got_l,
+                    scan_frac=summ["scan_frac"], batches=summ["batches"],
+                    equal_to_library=float((lib == rec["ids"]).all(1).mean()),
+                    args=f"--n {n_serve} --dim {d} --requests {nreq} "
+                         f"--build-shards {S}")
+    print(f"[mesh] launcher --build-shards {S} n={n_serve}: graph equal to "
+          f"build_rnsg's; qps={rec['qps']:.1f} recall@10={rec['recall']:.4f} "
+          f"(RNSGIndex.search with the served routing {lib_rec:.4f}, ids "
+          f"equal on {launcher['equal_to_library'] * 100:.2f}%) "
+          f"scan_frac={summ['scan_frac']:.3f} launches={got_l} wall "
+          f"{serve_wall:.1f} s")
+    if abs(rec["recall"] - lib_rec) > 0.01:
+        raise AssertionError(f"mesh launcher: recall {rec['recall']:.4f} is "
+                             f"more than 0.01 from RNSGIndex.search's "
+                             f"{lib_rec:.4f}")
+    del idx
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[mesh] done in {wall:.1f} s")
+    return dict(n=n, shards=S, per=local.per, sharded_build_s=sharded_s,
+                local_build_s=local_build_s, mesh_build_s=mesh_build_s,
+                configs=summary, equal=equal, probes=probes,
+                launcher=launcher, batch=batch, nq=nq, wall_s=wall,
+                own=own["summary"],
+                launches={**{c: {k: v for k, v in launches[c].items() if v}
+                             for c in names}, **own["launches"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1687,18 +2205,27 @@ def main() -> int:
     l2 = phase_l2dist(args.seed, args.bench_n)
 
     phase_exact(args.seed)
-    full = phase_full(n, args.nq, 64, args.seed, ops)
+    full, held = phase_full(n, args.nq, 64, args.seed, ops)
     torch.cuda.empty_cache()
     scratch = ROOT / "build" / "chip_smoke"
     served = phase_serve(n, scratch / "serve", ops)
     torch.cuda.empty_cache()
     stream = phase_stream(n, scratch / "stream", ops)
     torch.cuda.empty_cache()
+    mesh = phase_mesh(held, scratch / "mesh", ops)
+    del held
+    torch.cuda.empty_cache()
     out = ROOT / "chiprun_out"
     phase_witness(args.seed + 3, out)
     phase_witness_segtree(out)
     bench = phase_bench(args.bench_n, args.bench_nq, out)
     phase_device_times()
+    for name, p in mesh["probes"].items():
+        p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
+        print(f"[mesh] {name}: one batch {p['wall_ms']:.3f} ms of wall, "
+              f"{p['device_ms']:.3f} ms of device time, "
+              f"{p['launches_per_call']:g} device launches: idle share "
+              f"{p['idle_share']:.3f}")
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
     la = full["launches"]
@@ -1839,12 +2366,16 @@ def main() -> int:
         per_run["stream"] = {k: v for k, v in stream["launches"].items()
                              if k.split(".")[0] == rec["name"]}
         rec["serve_launches"] = {run: c for run, c in per_run.items() if c}
+        per_path = {path: {k: v for k, v in cnt.items()
+                           if k.split(".")[0] == rec["name"]}
+                    for path, cnt in mesh["launches"].items()}
+        rec["mesh_launches"] = {path: c for path, c in per_path.items() if c}
     kern[0]["delta_scan"] = dict(launches=stream["delta_scan_launches"],
                                  parity=stream["delta_parity"])
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
                    gather_rerank=rr, l2dist=l2, full=full, serve=served,
-                   stream=stream, bench=bench,
+                   stream=stream, mesh=mesh, bench=bench,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

@@ -3,9 +3,11 @@
 Pipeline: (1) KNN graph (spatial proximity, on the device: exact, or
 NNDescent); (2) ±ef_attribute rank window (attribute proximity, Alg. 2
 line 7 — index-based on the attribute-sorted order); (3) per-side
-gap-sorted candidate arrays (host numpy, copied from the reference); (4)
-the vectorized Algorithm-1 pruning engine (on the device); optionally (5)
-NSG-style reverse edges.  Ids are attribute ranks throughout.
+gap-sorted candidate arrays (on the device); (4) the vectorized
+Algorithm-1 pruning engine (on the device); optionally (5) NSG-style
+reverse edges.  Ids are attribute ranks throughout.  Steps (1)-(4) take a
+row range (``exact_knn``'s ``row0``/``row1``, ``adjacency_rows``'s
+``row0``), so the sharded build runs this code slab by slab.
 
 ``RNSGGraph`` holds its arrays as torch tensors on one device and saves
 them in the reference's npz layout, so an index written by either package
@@ -124,31 +126,47 @@ def graph_from_arrays(arrays: dict, device) -> RNSGGraph:
                      meta=dict(arrays.get("meta") or {}))
 
 
-def _gap_sorted_side(n: int, knn_ids: np.ndarray, ef_attribute: int,
-                     side: str) -> np.ndarray:
-    """Per-node candidate ids of one side, ascending rank-gap, -1 padded.
-    Side candidates = attribute window ∪ same-side KNN neighbors."""
-    ids = np.arange(n)[:, None]
-    win_off = np.arange(1, ef_attribute + 1)[None, :]
-    win = ids - win_off if side == "l" else ids + win_off          # (n, ef)
+def _gap_sorted_side(n: int, knn_ids: torch.Tensor, ef_attribute: int,
+                     side: str, row0: int = 0) -> torch.Tensor:
+    """Per-node candidate ids of one side for nodes [row0, row0 +
+    len(knn_ids)), ascending rank-gap, -1 padded, (rows, ef + k) int64 on
+    ``knn_ids``' device.  Side candidates = attribute window ∪ same-side
+    KNN neighbors.  Both sorts are stable, so the result is the
+    reference's numpy version's bit for bit."""
+    big = np.iinfo(np.int64).max // 2
+    dev = knn_ids.device
+    ids = torch.arange(row0, row0 + knn_ids.shape[0], device=dev)[:, None]
+    win_off = torch.arange(1, ef_attribute + 1, device=dev)[None, :]
+    win = ids - win_off if side == "l" else ids + win_off          # (B, ef)
     win_ok = (win >= 0) & (win < n)
-    kn = knn_ids.copy()
+    kn = knn_ids.long()
     # kn < n guards against out-of-range candidates (e.g. pad-row ids from a
     # k >= n exact_knn, or a caller-supplied approximate KNN graph)
     kn_ok = ((kn >= 0) & (kn < n)
              & ((kn < ids) if side == "l" else (kn > ids)))
-    cand = np.concatenate([np.where(win_ok, win, -1),
-                           np.where(kn_ok, kn, -1)], axis=1)        # (n, ch)
-    gap = np.where(cand >= 0, np.abs(cand - ids), np.iinfo(np.int64).max // 2)
-    order = np.argsort(gap, axis=1, kind="stable")
-    cand = np.take_along_axis(cand, order, axis=1)
-    gap = np.take_along_axis(gap, order, axis=1)
-    dup = np.zeros_like(cand, bool)
+    cand = torch.cat([torch.where(win_ok, win, -1),
+                      torch.where(kn_ok, kn, -1)], dim=1)           # (B, ch)
+    gap = torch.where(cand >= 0, (cand - ids).abs(), big)
+    order = torch.argsort(gap, dim=1, stable=True)
+    cand, gap = cand.gather(1, order), gap.gather(1, order)
+    dup = torch.zeros_like(cand, dtype=torch.bool)
     dup[:, 1:] = (cand[:, 1:] == cand[:, :-1]) & (cand[:, 1:] >= 0)
-    cand = np.where(dup, -1, cand)
-    gap = np.where(dup, np.iinfo(np.int64).max // 2, gap)
-    order = np.argsort(gap, axis=1, kind="stable")
-    return np.take_along_axis(cand, order, axis=1).astype(np.int32)
+    cand = torch.where(dup, -1, cand)
+    gap = torch.where(dup, big, gap)
+    order = torch.argsort(gap, dim=1, stable=True)
+    return cand.gather(1, order)
+
+
+def adjacency_rows(vecs: torch.Tensor, knn_ids: torch.Tensor,
+                   ef_attribute: int, m: int, row0: int = 0) -> np.ndarray:
+    """Steps (2)-(4) for nodes [row0, row0 + len(knn_ids)) of the
+    attribute-sorted corpus ``vecs``: both sides' gap-sorted candidates,
+    then Algorithm 1.  ``knn_ids``: those nodes' (rows, k) KNN rank ids, -1
+    pad.  Returns (rows, m) int32 neighbor ids on the host."""
+    n = vecs.shape[0]
+    cand_l = _gap_sorted_side(n, knn_ids, ef_attribute, "l", row0)
+    cand_r = _gap_sorted_side(n, knn_ids, ef_attribute, "r", row0)
+    return prune_all(vecs, cand_l, cand_r, m, row0=row0)
 
 
 def build_rnsg(vectors: np.ndarray, attrs: np.ndarray, *, m: int = 32,
@@ -177,16 +195,14 @@ def build_rnsg(vectors: np.ndarray, attrs: np.ndarray, *, m: int = 32,
         # a corpus has at most n-1 true neighbors per node
         k_eff = min(ef_spatial, n - 1)
         if k_eff < 1:
-            knn_ids = np.full((n, 0), -1, np.int32)
+            knn = torch.full((n, 0), -1, dtype=torch.int64, device=dev)
+        elif knn_method == "exact":
+            _, knn = exact_knn(v_dev, k_eff)
         else:
-            if knn_method == "exact":
-                _, ids = exact_knn(v_dev, k_eff)
-            else:
-                _, ids = nndescent(v_dev, k_eff, iters=knn_iters, seed=seed)
-            knn_ids = ids.cpu().numpy().astype(np.int32)
-    cand_l = _gap_sorted_side(n, knn_ids, ef_attribute, "l")
-    cand_r = _gap_sorted_side(n, knn_ids, ef_attribute, "r")
-    nbrs = prune_all(v_dev, cand_l, cand_r, m)
+            _, knn = nndescent(v_dev, k_eff, iters=knn_iters, seed=seed)
+    else:
+        knn = torch.as_tensor(np.array(knn_ids), device=dev)
+    nbrs = adjacency_rows(v_dev, knn, ef_attribute, m)
     if reverse_edges:
         from repro_torch.index.baselines import add_reverse_edges
         nbrs = add_reverse_edges(nbrs, reverse_cap or int(m * 1.25),

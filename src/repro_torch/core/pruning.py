@@ -54,23 +54,28 @@ def pack_kept(cand_l: torch.Tensor, kept_l: torch.Tensor,
     return torch.where(kept[:, :m], cand[:, :m], -1).to(torch.int32)
 
 
-def prune_all(vecs: torch.Tensor, cand_l: np.ndarray, cand_r: np.ndarray,
-              m: int, block: int = 8192) -> np.ndarray:
-    """Run Algorithm 1 for every node on ``vecs``' device. cand_l/cand_r:
-    (n, Ch) rank-gap-sorted candidate ids per side (-1 padded). Returns
-    (n, m) int32 neighbor ids (-1 pad)."""
-    n = vecs.shape[0]
+def prune_all(vecs: torch.Tensor, cand_l, cand_r, m: int,
+              block: int = 8192, row0: int = 0) -> np.ndarray:
+    """Run Algorithm 1 for nodes [row0, row0 + len(cand_l)) against the
+    corpus ``vecs`` on its device. cand_l/cand_r: (rows, Ch) rank-gap-sorted
+    candidate ids per side (-1 padded; numpy or torch).  Blocks keep the
+    whole corpus's grid (global multiples of ``block``), so a row range's
+    batched products have the whole call's shapes.  Returns (rows, m)
+    int32 neighbor ids (-1 pad)."""
     half = max(m // 2, 1)
     dev = vecs.device
+    row1 = row0 + len(cand_l)
     out = []
-    for lo in range(0, n, block):
-        hi = min(lo + block, n)
-        ci_l = torch.as_tensor(cand_l[lo:hi], device=dev).long()
-        ci_r = torch.as_tensor(cand_r[lo:hi], device=dev).long()
+    lo = row0
+    while lo < row1:
+        hi = min((lo // block + 1) * block, row1)
+        ci_l = torch.as_tensor(cand_l[lo - row0:hi - row0], device=dev).long()
+        ci_r = torch.as_tensor(cand_r[lo - row0:hi - row0], device=dev).long()
         xv = vecs[lo:hi]
         kept_l = prune_side(xv, ci_l, vecs[ci_l.clamp_min(0)], half)
         kept_r = prune_side(xv, ci_r, vecs[ci_r.clamp_min(0)], half)
         out.append(pack_kept(ci_l, kept_l, ci_r, kept_r, m).cpu().numpy())
+        lo = hi
     if not out:
         return np.full((0, m), -1, np.int32)
     return np.concatenate(out)

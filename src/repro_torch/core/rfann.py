@@ -33,6 +33,16 @@ class RNSGIndex:
         """Build on ``device`` (default the card; raises without one)."""
         return cls(build_rnsg(vectors, attrs, device=device, **kw))
 
+    @classmethod
+    def build_sharded(cls, vectors: np.ndarray, attrs: np.ndarray, *,
+                      device=None, **kw) -> "RNSGIndex":
+        """Sharded construction (``core.build_sharded``) — bit-identical to
+        :meth:`build` with exact KNN.  ``n_shards=`` picks the slab count
+        (default one per visible card), placed round-robin over ``device``
+        (default every visible card) or over a ``mesh=``."""
+        from repro_torch.core.build_sharded import build_rnsg_sharded
+        return cls(build_rnsg_sharded(vectors, attrs, device=device, **kw))
+
     def save(self, path: str, *, shards: int = 0) -> None:
         """``shards=0``: atomic single-npz save in the reference's layout
         (graph only).  ``shards>=1``: the sharded directory format

@@ -4,7 +4,7 @@ device) and NNDescent.
 Distances are squared L2 throughout."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +39,22 @@ def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals.gather(1, o), idx.gather(1, o)
 
 
-def exact_knn(vecs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact KNN of every row of ``vecs`` (ids exclude self), on the
-    tensor's device.  Pads n to a block multiple internally with rows at
-    1e9, which never enter a real row's top-k.  When ``k >= n`` the top-k
-    spills into the pad rows; those slots come back masked (id -1,
-    distance +inf).  Returns (dists (n,k) f32, ids (n,k) int64)."""
+def exact_knn(vecs: torch.Tensor, k: int, row0: int = 0,
+              row1: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact KNN of rows [row0, row1) of ``vecs`` (default every row)
+    against all of its rows (ids exclude self), on the tensor's device.
+    Pads n to a block multiple internally with rows at 1e9, which never
+    enter a real row's top-k.  When ``k >= n`` the top-k spills into the pad
+    rows; those slots come back masked (id -1, distance +inf).  ``row0``
+    must be a multiple of ``BLOCK``: every distance block then has the
+    whole call's shape, so a row range is those rows of the whole call bit
+    for bit (the sharded build's slabs).  Returns (dists (row1-row0, k)
+    f32, ids (row1-row0, k) int64)."""
     n, dim = vecs.shape
+    row1 = n if row1 is None else row1
+    if row0 % BLOCK:
+        raise ValueError(f"exact_knn: row0={row0} is not a multiple of "
+                         f"{BLOCK}")
     block = BLOCK
     pad = (-n) % block
     v = vecs.float()
@@ -54,14 +63,14 @@ def exact_knn(vecs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
                                      device=v.device)])
     ds, ids = [], []
     rows = torch.arange(block, device=v.device)
-    for lo in range(0, n + pad, block):
+    for lo in range(row0, row1, block):
         d = sq_dists(v[lo:lo + block], v)
         d[rows, lo + rows] = INF                      # exclude self
         dv, di = smallest_k(d, k)
         ds.append(dv)
         ids.append(di)
         del d
-    d, i = torch.cat(ds)[:n], torch.cat(ids)[:n]
+    d, i = torch.cat(ds)[:row1 - row0], torch.cat(ids)[:row1 - row0]
     oob = i >= n                     # pad-row ids: only reachable when k >= n
     return torch.where(oob, INF, d), torch.where(oob, -1, i)
 

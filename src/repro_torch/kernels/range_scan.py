@@ -37,7 +37,9 @@ SMEM_K = 2048
 
 #: per-(device, stream) arrival counters of the one-launch selects (this
 #: scan's and ``gather_rerank``'s): zero before each launch, and a kernel's
-#: last block of each query sets its counter back to zero
+#: last block of each query sets its counter back to zero.  Keyed by a
+#: tensor's device, which always carries its index, so one card is one key
+#: however many mesh shards it holds
 _ARRIVALS: dict = {}
 
 

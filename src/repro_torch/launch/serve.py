@@ -9,9 +9,11 @@ QPS, recall and latency percentiles.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode rfann --device cpu --n 1024 --dim 16 --requests 48
 
 ``--device`` (default ``cuda``) is where the index is built and searched;
-``cpu`` runs the kernels' plain PyTorch versions.  ``--mode lm`` and
-``--build-shards`` belong to later slices of the port and exit with an
-error naming them.
+``cpu`` runs the kernels' plain PyTorch versions.  ``--build-shards S``
+routes a fresh static build through the sharded constructor
+(``RNSGIndex.build_sharded``) over S slabs placed on ``--device``
+(bit-identical output).  ``--mode lm`` belongs to a later slice of the port
+and exits with an error naming it.
 
 ``--metrics-path out.prom`` dumps the final metrics snapshot on shutdown:
 Prometheus text exposition at the given path plus a JSON sibling
@@ -50,6 +52,7 @@ import numpy as np
 from repro_torch.core.rfann import RNSGIndex
 from repro_torch.data.ann import (ground_truth, make_attrs, make_vectors,
                                   mixed_workload, recall_at_k)
+from repro_torch.parallel.sharding import make_mesh
 from repro_torch.runtime.fault_tolerance import PreemptionHandler
 from repro_torch.serving.engine import RFANNEngine
 from repro_torch.streaming import ReadOnlyIndexError
@@ -135,6 +138,12 @@ def serve_rfann(args) -> dict:
                              max_delta=args.max_delta or 1024,
                              compact_every=args.compact_every, device=dev)
         pending_ins = list(range(n0, args.n))
+        print(f"[serve] {idx.stats()}")
+    elif args.build_shards:
+        print(f"[serve] building RNSG index ({args.build_shards} shards) ...")
+        idx = RNSGIndex.build_sharded(
+            vecs, attrs, mesh=make_mesh(args.build_shards, [dev]), m=args.m,
+            ef_spatial=32, ef_attribute=48)
         print(f"[serve] {idx.stats()}")
     else:
         print("[serve] building RNSG index ...")
@@ -295,8 +304,10 @@ def main(argv=None):
                     help="row-shard count for --index-path saves (restore "
                          "fills shards with parallel reads)")
     ap.add_argument("--build-shards", type=int, default=0,
-                    help="multi-device sharded build: not in this slice of "
-                         "the port (0 = single-device build)")
+                    help="static mode: build the graph with the sharded "
+                         "constructor over this many slabs, placed on "
+                         "--device (0 = single-device build; results are "
+                         "bit-identical either way)")
     ap.add_argument("--calibration", default="",
                     help="JSON path: load cost-model calibration at startup, "
                          "persist it on shutdown")
@@ -330,9 +341,6 @@ def main(argv=None):
         ap.error("--mode lm arrives with the LM-scaffold slice of the port "
                  "(ROADMAP.md queue 1 item 6); serve it with "
                  "repro.launch.serve")
-    if args.build_shards:
-        ap.error("--build-shards arrives with the multi-device slice of the "
-                 "port (ROADMAP.md queue 1 item 4)")
     return serve_rfann(args)
 
 

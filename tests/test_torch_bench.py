@@ -2,8 +2,7 @@
 on the CPU: each ported bench writes the reference driver's columns (the
 kernel table's TPU roofline becomes the card's bound, beside the library
 yardstick and the device), exact methods score recall 1.0, output stays
-under ``results/bench_torch/``, and a bench the port has not reached
-refuses to run."""
+under ``results/bench_torch/``, and an unknown bench refuses the run."""
 import csv
 from pathlib import Path
 
@@ -32,8 +31,8 @@ REF_COLUMNS = {
     "kernels": ["kernel", "shape", "us_per_call", "gflops_at_wall",
                 "tpu_roofline_us"],
 }
-for _name in ("planner", "search_substrate", "beam_width", "quantized",
-              "async_cache", "streaming", "wal"):
+for _name in ("planner", "search_substrate", "mesh_auto", "beam_width",
+              "quantized", "async_cache", "streaming", "build", "wal"):
     with open(ROOT / "results" / "bench" / f"{_name}.csv") as _f:
         REF_COLUMNS[_name] = next(csv.reader(_f))
 
@@ -69,8 +68,8 @@ def _run(name, methods):
         return rt.bench_scalability(D, NQ, True, "cpu")
     if name == "kernels":
         return rt.bench_kernels(True, "cpu")
-    if name == "wal":
-        return rt.bench_wal(N, D, True, "cpu")
+    if name in ("wal", "build"):
+        return getattr(rt, f"bench_{name}")(N, D, True, "cpu")
     return getattr(rt, f"bench_{name}")(N, D, NQ, True, "cpu")
 
 
@@ -96,18 +95,30 @@ def test_bench_writes_the_reference_columns(name, methods, results):
             "l2dist", "l2dist_ref", "gather_dist", "gather_dist_ref"}
         assert all(r["device"] == "cpu" and r["bound_us"] > 0 for r in rows)
     if name in ("search_substrate", "beam_width", "quantized", "streaming",
-                "wal"):
+                "wal", "build"):
         stem = {"search_substrate": "substrate", "beam_width": "beam",
                 "quantized": "quant", "streaming": "stream",
-                "wal": "wal"}[name]
+                "wal": "wal", "build": "build"}[name]
         assert (results / f"BENCH_pt_{stem}.json").exists()
     if name == "async_cache":
-        # the cache rows only: the reference's async_local_8shard rows need
-        # the multi-device slice
         assert [(r["method"], r["plan"]) for r in rows] == [
-            ("cache_repeat", "graph"), ("cache_repeat", "auto")]
+            ("cache_repeat", "graph"), ("cache_repeat", "auto"),
+            ("async_local_8shard", "graph"), ("async_local_8shard", "auto")]
         assert all(r["identical"] and r["detail"] == f"hits={NQ}"
-                   for r in rows)
+                   for r in rows[:2])
+        assert all(r["identical"] and r["detail"] == "seq->async"
+                   for r in rows[2:])
+    if name == "mesh_auto":
+        assert {(r["method"], r["workload"]) for r in rows} == {
+            (f"mesh_{p}", w) for p in ("graph", "auto")
+            for w in ("narrow_1pct", "medium_10pct", "wide_50pct")}
+        assert all(r["shards"] == 8 and r["devices"] == 1 for r in rows)
+    if name == "build":
+        assert [(r["method"], r["shards"]) for r in rows] == [
+            ("build_single", 1), ("build_sharded", 1), ("build_sharded", 2),
+            ("build_sharded", 4), ("build_sharded", 8), ("persist", 1),
+            ("persist", 8)]
+        assert all(r["identical"] == 1 for r in rows)
     if name == "streaming":
         assert [r["delta_frac_target"] for r in rows] == [0.0, 0.01, 0.05,
                                                           0.2]
@@ -135,17 +146,39 @@ def test_recall_at_k_equals_the_reference_on_its_edge_cases():
                           found_dists=fd) == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("only", ["mesh_auto", "async_cache,mesh_auto",
-                                  "streaming,build", "build", "wal,bogus",
-                                  "kernels,mesh_auto", "bogus"])
-def test_unported_or_unknown_bench_exits_non_zero(only, results, capsys):
-    """A run that asks for any pending or unknown bench refuses the whole
-    run, ported benches beside it included."""
+@pytest.mark.parametrize("only", ["wal,bogus", "bogus"])
+def test_unknown_bench_exits_non_zero(only, results, capsys):
+    """A run that asks for an unknown bench refuses the whole run, a
+    ported bench beside it included."""
     assert rt.main(["--only", only, "--device", "cpu"]) != 0
     out = capsys.readouterr()
     assert "name,us_per_call" not in out.out          # no empty table
-    assert ("not ported yet" in out.err) or ("unknown bench" in out.err)
+    assert "unknown bench" in out.err
     assert not results.exists()
+
+
+def test_multi_device_benches_through_main(results, capsys):
+    """``--only mesh_auto,build,async_cache`` on the CPU writes the three
+    tables: every sharded build identical to the single-device one, the
+    async rows identical to the sequential ones."""
+    assert rt.main(["--only", "mesh_auto,build,async_cache", "--device",
+                    "cpu", "--n", str(N)]) == 0
+    assert {p.name for p in results.iterdir()} == {
+        "mesh_auto.csv", "build.csv", "async_cache.csv", "BENCH_pt_build.json"}
+    tables = {}
+    for name in ("mesh_auto", "build", "async_cache"):
+        with open(results / f"{name}.csv") as f:
+            tables[name] = list(csv.DictReader(f))
+    assert [r["shards"] for r in tables["build"]
+            if r["method"] == "build_sharded"] == ["1", "2", "4", "8"]
+    assert all(r["identical"] == "1" for r in tables["build"])
+    rows = [r for r in tables["async_cache"]
+            if r["method"] == "async_local_8shard"]
+    assert [r["plan"] for r in rows] == ["graph", "auto"]
+    assert all(r["identical"] == "True" for r in rows)
+    assert len(tables["mesh_auto"]) == 6
+    out = capsys.readouterr().out
+    assert "_bit_identical=True" in out and "_async_vs_seq=" in out
 
 
 def test_main_writes_only_under_results(results, capsys):

@@ -116,8 +116,8 @@ def test_prune_block_size_cannot_change_rows():
                    ef_attribute=12, device="cpu")
     from repro_torch.core.construction import _gap_sorted_side
     _, knn = exact_knn(g.vecs, 8)
-    cl = _gap_sorted_side(300, knn.numpy().astype(np.int32), 12, "l")
-    cr = _gap_sorted_side(300, knn.numpy().astype(np.int32), 12, "r")
+    cl = _gap_sorted_side(300, knn, 12, "l")
+    cr = _gap_sorted_side(300, knn, 12, "r")
     assert np.array_equal(prune_all(g.vecs, cl, cr, 8, block=37),
                           g.nbrs.numpy())
 

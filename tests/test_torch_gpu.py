@@ -2,9 +2,10 @@
 (f32, int8 and bf16 corpora; the f32 rerank at every M and k; l2dist; the
 fused beam against the lockstep loop), the quantized corpus against the
 CPU's bit for bit, and the slices end to end (the benchmark's baselines
-included).  Marked
+and the 8-shard mesh and sharded build on one card included).  Marked
 ``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
 present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
+import copy
 import time
 
 import numpy as np
@@ -305,6 +306,103 @@ def test_searches_from_two_threads_during_a_build(cuda):
     assert ops.LAUNCHES["beam_batched.f32"] > 0
     assert ops.LAUNCHES["range_scan.int8"] > 0 and ops.LAUNCHES[
         "gather_rerank"] > 0
+
+
+def test_sharded_build_on_card_bit_equal(cuda):
+    """Eight slabs on one card: every array equals ``build_rnsg``'s (the
+    KNN products have its 512-row shapes, the prune its 8192-row grid)."""
+    from repro_torch.core.build_sharded import build_rnsg_sharded
+    from repro_torch.core.construction import build_rnsg
+    from repro_torch.data.ann import make_attrs, make_vectors
+    n, d = 30000, 64
+    v, a = make_vectors(n, d, seed=4), make_attrs(n, seed=4)
+    want = build_rnsg(v, a, m=16, ef_spatial=16, ef_attribute=24).arrays()
+    g = build_rnsg_sharded(v, a, n_shards=8, m=16, ef_spatial=16,
+                           ef_attribute=24)
+    assert g.device.type == "cuda" and g.meta["shards"] == 8
+    got = g.arrays()
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+
+
+@pytest.mark.parametrize("bw", [1, 4])
+@pytest.mark.parametrize("plan", ["graph", "auto"])
+def test_mesh_on_card_matches_local_and_plain(cuda, plan, bw):
+    """An 8-shard mesh on one card: its merged top-k is the local path's
+    (up to near-ties), the local path's kernels agree with its plain
+    versions, and the mesh runs one fused beam per shard per batch."""
+    from repro_torch.data.ann import make_attrs, make_vectors, mixed_workload
+    from repro_torch.parallel.sharding import make_mesh
+    from repro_torch.serving.distributed import DistributedRFANN
+    n, d, q = 16000, 32, 64
+    v, a = make_vectors(n, d, seed=1), make_attrs(n, seed=1)
+    qv = make_vectors(q, d, seed=2)
+    rg, _ = mixed_workload(a, q, seed=3)
+    kw = dict(n_shards=8, m=16, ef_spatial=16, ef_attribute=24)
+    local = DistributedRFANN(v, a, **kw)
+    mesh = DistributedRFANN(v, a, mesh=make_mesh(8), **kw)
+    assert {str(dv) for dv in mesh.mesh.devices} == {"cuda:0"} or \
+        torch.cuda.device_count() > 1
+    sk = dict(k=10, ef=64, plan=plan, beam_width=bw)
+    planners = ([sub.planner for sub in local.substrates]
+                + [mesh.mesh_substrate.planner])
+    prior = [p.cost.state_dict() for p in planners]
+
+    def run(dist, **kw):
+        # every search plans from the planners' prior, so a kernel path
+        # and its plain path route alike
+        for p, st in zip(planners, prior):
+            p.cost.load_state_dict(copy.deepcopy(st))
+        return tuple(torch.as_tensor(t)
+                     for t in dist.search(qv, rg, **sk, **kw))
+    ops.reset_launches()
+    got = run(mesh)
+    beam = "beam_batched.f32" if bw > 1 else "beam_single.f32"
+    assert ops.LAUNCHES[beam] == 8 or plan == "auto"
+    assert ops.LAUNCHES[beam] > 0
+    want = run(local)
+    _same(want, run(local, use_kernel=False), atol=1e-3)
+    _same(got, run(mesh, use_kernel=False), atol=1e-3)
+    if plan == "graph":     # auto may route a query's narrow side apart
+        _same(got, want, atol=1e-3)
+
+
+def test_async_local_path_enqueues_without_a_host_sync(cuda):
+    """The distributed local path's enqueue, every shard's
+    ``dispatch(defer=True)``, under ``set_sync_debug_mode("error")``: no
+    ``.cpu()``, ``.item()``, ``nonzero`` or pageable copy waits on the
+    card before the merge."""
+    from repro_torch.data.ann import make_attrs, make_vectors, mixed_workload
+    from repro_torch.search import SearchRequest, clip_interval
+    from repro_torch.serving.distributed import DistributedRFANN
+    n, d, q = 16000, 32, 64
+    v, a = make_vectors(n, d, seed=5), make_attrs(n, seed=5)
+    qv = make_vectors(q, d, seed=6)
+    rg, _ = mixed_workload(a, q, seed=7)
+    dist = DistributedRFANN(v, a, n_shards=8, m=16, ef_spatial=16,
+                            ef_attribute=24)
+    dist.install_quantized("int8")
+    lo, hi = dist.rank_range(rg)
+    for prec, bw, plan in (("f32", 1, "auto"), ("int8", 4, "auto"),
+                           ("f32", 4, "graph")):
+        kw = dict(k=10, ef=64, plan=plan, beam_width=bw, precision=prec)
+        want = dist.search(qv, rg, **kw)           # builds the kernels
+        pending = []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s, sub in enumerate(dist.substrates):
+                slo, shi = clip_interval(lo, hi, s * dist.per, dist.per)
+                pending.append(sub.dispatch(SearchRequest(
+                    queries=qv, lo=slo, hi=shi, k=10, ef=64, strategy=plan,
+                    use_kernel=True, beam_width=bw, precision=prec),
+                    defer=True))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(pending) == 8
+        got = [p.result() for p in pending]
+        assert all(r.ids.shape == (q, 10) for r in got)
+        assert want[0].shape == (q, 10)
 
 
 @pytest.mark.parametrize("q,n,d", [(1, 1, 1), (4, 7, 3), (100, 300, 130),

@@ -218,12 +218,14 @@ def test_launcher_rfann_end_to_end_and_restore(tmp_path, capsys):
 
 
 def test_launcher_refuses_other_slices(capsys):
+    """``--mode lm`` waits for the LM-scaffold slice; ``--build-shards``
+    (the multi-device slice) is in, so it serves."""
     with pytest.raises(SystemExit):
         serve.main(["--mode", "lm", "--device", "cpu"])
     assert "LM-scaffold slice" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        serve.main(_SMALL + ["--build-shards", "2"])
-    assert "multi-device slice" in capsys.readouterr().err
+    rec = serve.main(_SMALL + ["--requests", "16", "--build-shards", "2"])
+    assert rec["served"] == 16
+    assert "building RNSG index (2 shards)" in capsys.readouterr().out
 
 
 def test_launcher_imports_no_lm_code():
