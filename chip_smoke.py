@@ -114,15 +114,32 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-11. device times — range_scan's, gather_rerank's and l2dist's timed parity
-             shapes again, and one batch of the mesh phase's mesh and
-             local async paths (their idle share),
+11. lm     — the LM scaffold's serving path (no hand kernel: plain torch
+             ops and cuBLAS products): llama3-8b at full width and depth
+             (bf16, parameters drawn on the card from ``--seed``) and
+             mamba2-780m at full size, each a prefill of 64 x 32 tokens and
+             16 greedy decode steps, with the parameter count and bytes,
+             init, prefill and per-step decode times, tok/s and peak memory
+             beside their bounds, and the first step's logits against the
+             last position of a prefill of 33 tokens (relative L2 <= 0.1 in
+             bf16); llama3-8b's f32 copy cut to 2 layers, the same check
+             within 1e-3; the witness (llama3-8b cut to 2 layers at full
+             width, numpy parameters from the seed) written to
+             ``chiprun_out/witness_lm_llama3-8b.npz`` for ``lm_witness.py``;
+             each of the ten archs' smoke configs on the card against the
+             same port code on the CPU (f32 and bf16, prefill and 4 decode
+             steps, logits and caches); the launcher's ``--mode lm`` in
+             process;
+12. device times — range_scan's, gather_rerank's and l2dist's timed parity
+             shapes again, one batch of the mesh phase's mesh and
+             local async paths, and one decode step of the lm phase's
+             llama3-8b and mamba2-780m (their idle shares),
              under torch.profiler: device time and device launches per
              call (last, because a profiler session slows the host-side
              torch ops of every later phase);
-12. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
+13. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
     path under ``mesh_launches``);
-13. the last line ``{"ok": true, "device": {...}}``.
+14. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -145,10 +162,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense, tensor cores
 
 
-def _bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def _bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -2169,6 +2187,318 @@ def phase_mesh(held, tmp: Path, ops, n_serve=100_000, nreq=1024, batch=64):
                              for c in names}, **own["launches"]})
 
 
+#: the lm phase's tolerances.  f32 (TF32 off): the two paths or devices sum
+#: in another order only.  bf16 keeps 8 mantissa bits and the two paths
+#: round at different points through every layer: the relative L2 distance
+#: of the decode logits from the longer prefill's
+LM_F32_ATOL = 1e-3
+LM_BF16_REL = 0.1
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _host(t) -> np.ndarray:
+    return t.float().cpu().numpy().copy()
+
+
+def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
+    """One model on the card: parameters drawn there from ``seed``, a
+    warm-up and a timed prefill of batch × seq tokens, ``steps`` greedy
+    decode steps, then the prefill of seq + 1 tokens against the first
+    decode step's logits.  Prints each number beside its bound.  With
+    ``probe``, queues a device-time reading of one decode step (its own
+    cache, made at the reading) for the last phase; the model stays on the
+    card until then."""
+    import torch
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import count_params
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != count_params(cfg):
+        raise AssertionError(f"[lm] {label}: {n_params} parameters, the "
+                             f"spec {count_params(cfg)}")
+    p_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    emb = params["embed"]
+    # a step gathers rows of an untied embedding table; every other weight
+    # (a tied table is the head) is a product operand read whole.  The head
+    # (vocab x d) scores only the last position of a prefill
+    gathered = 0 if cfg.tie_embeddings else emb.numel()
+    mm_params = n_params - gathered
+    head = emb.numel()
+    peak_flops = BF16_FLOPS if cfg.dtype == "bfloat16" else F32_FLOPS
+    b = concrete_batch(cfg, "prefill", batch, seq, np.random.default_rng(seed),
+                       device=dev)
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model.prefill(params, b, cache_len=seq + steps)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(params, b, cache_len=seq + steps)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks = [torch.argmax(logits[:, :V], -1).int()]
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        t0 = time.perf_counter()
+        evs[0].record()
+        for i in range(steps):
+            lg, cache = model.decode(params, cache, seq + i, toks[-1])
+            if i == 0:
+                l_dec = lg
+            toks.append(torch.argmax(lg[:, :V], -1).int())
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(steps)]
+        c_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+        del cache
+        _, l_full = model.prefill(params, dict(
+            b, tokens=torch.cat([b["tokens"], toks[0][:, None]], 1)))
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ld, lf = _host(l_dec[:, :V]), _host(l_full[:, :V])
+    rel, err = _rel(ld, lf), float(np.max(np.abs(ld - lf)))
+    ok = bool(np.isfinite(ld).all() and np.isfinite(lf).all())
+    ok &= (rel <= LM_BF16_REL) if cfg.dtype == "bfloat16" else \
+        (err <= LM_F32_ATOL)
+    out = _host(torch.stack(toks, 1))
+    dec_ms = decode_s * 1e3 / steps
+    pre_bound, pre_by = _bound(
+        p_bytes, 2.0 * ((mm_params - head) * seq + head) * batch, peak_flops)
+    dec_bound, dec_by = _bound(p_bytes - gathered * emb.element_size()
+                               + c_bytes, 2.0 * mm_params * batch, peak_flops)
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+               batch=batch, seq=seq, steps=steps, params=n_params,
+               param_bytes=p_bytes, cache_bytes=c_bytes, init_s=init_s,
+               init_bound_ms=p_bytes / HBM_BYTES_PER_S * 1e3,
+               first_prefill_ms=first_ms, prefill_ms=prefill_ms,
+               prefill_bound_ms=pre_bound, prefill_bound_by=pre_by,
+               decode_ms_per_step=dec_ms, decode_step_ms=step_ms,
+               decode_bound_ms=dec_bound, decode_bound_by=dec_by,
+               tok_s=batch * steps / decode_s,
+               tok_s_bound=batch / dec_bound * 1e3,
+               init_peak_bytes=init_peak, peak_bytes=peak, held_bytes=held,
+               peak_bound_bytes=held + p_bytes + c_bytes,
+               consistency_rel=rel, consistency_max_abs=err,
+               consistency_ok=ok, tokens=out[0].tolist())
+    if probe:
+        state, tok = {}, toks[0]
+
+        def step(model=model, params=params, b=b):
+            with torch.inference_mode():
+                if not state:
+                    state["cache"] = model.prefill(params, b,
+                                                   cache_len=seq + 1)[0]
+                model.decode(params, state["cache"], seq, tok)
+
+        rec["probe"] = dict(wall_ms=dec_ms)
+        _device_probe(rec["probe"], step, f"lm {label}: one decode step", 5)
+    print(f"[lm] {label}: {n_params:,} parameters, {p_bytes / 1e9:.3f} GB "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype})")
+    print(f"[lm] {label}: init {init_s * 1e3:.1f} ms (bound "
+          f"{rec['init_bound_ms']:.2f} ms: the parameter bytes written once)")
+    print(f"[lm] {label}: prefill {batch} x {seq} tokens {prefill_ms:.2f} ms "
+          f"(first call {first_ms:.2f} ms; bound {pre_bound:.2f} ms, by "
+          f"{pre_by})")
+    print(f"[lm] {label}: decode {dec_ms:.3f} ms per step (median event time "
+          f"{float(np.median(step_ms)):.3f} ms, first step {step_ms[0]:.3f}; "
+          f"bound {dec_bound:.3f} ms, by {dec_by})")
+    print(f"[lm] {label}: {rec['tok_s']:.1f} tok/s (bound "
+          f"{rec['tok_s_bound']:.1f})")
+    print(f"[lm] {label}: peak memory {peak / 1e9:.3f} GB over the prefills "
+          f"and decode steps, {init_peak / 1e9:.3f} GB over the init (bound "
+          f"{rec['peak_bound_bytes'] / 1e9:.3f} GB: {held / 1e9:.3f} held "
+          f"before, the parameters and the cache)")
+    print(f"[lm] {label}: decode after a prefill of {seq} against the last "
+          f"position of a prefill of {seq + 1}: relative L2 {rel:.3e}, max "
+          f"abs {err:.3e} (limit "
+          + (f"relative {LM_BF16_REL})" if cfg.dtype == "bfloat16"
+             else f"abs {LM_F32_ATOL})"))
+    if not ok:
+        raise AssertionError(f"[lm] {label}: prefill and decode disagree "
+                             f"(relative L2 {rel:.3e}, max abs {err:.3e})")
+    del params, logits, lg, l_dec, l_full, b, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_trace(cfg, flat, batch, dev, steps, toks=None):
+    """Prefill then ``steps`` decode steps on ``dev`` with the parameters
+    ``flat`` ((path, array) pairs) and the host batch ``batch``; feeds
+    ``toks`` or greedy tokens.  Returns ([(logits, {leaf: array})] after
+    the prefill and each step, the tokens fed)."""
+    import torch
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import DTYPES, params_from_reference
+    model = Model(cfg, device=dev)
+    params = params_from_reference(flat, cfg, dev)
+    b = {k: (v if v.dtype == torch.int32 else v.to(DTYPES[cfg.dtype])).to(dev)
+         for k, v in batch.items()}
+    S = b["tokens"].shape[1]
+    out, fed = [], []
+    with torch.inference_mode():
+        cache, logits = model.prefill(params, b, cache_len=S + steps)
+        for i in range(steps + 1):
+            out.append((_host(logits), {k: _host(v) for k, v in cache.items()}))
+            if i == steps:
+                break
+            fed.append(torch.argmax(logits[:, :cfg.vocab_size], -1).int().cpu()
+                       if toks is None else toks[i])
+            logits, cache = model.decode(params, cache, S + i, fed[-1].to(dev))
+    return out, fed
+
+
+def _cat(cache):
+    return np.concatenate([cache[k].ravel() for k in sorted(cache)])
+
+
+def _lm_smoke(arch, seed):
+    """``arch``'s smoke config on the card against the same port code on the
+    CPU, same parameters (numpy from ``seed``), batch and tokens: prefill
+    and 4 decode steps.  f32: logits within 1e-4 absolute, each cache leaf
+    within 1e-4·max(1, its max |value|).  bf16: at every step the relative
+    L2 distance of the card's logits (and of its whole cache) from the
+    CPU's at most twice the CPU's own bf16-vs-f32 distance (its f32 run on
+    the bf16-rounded parameters and inputs, fed the same tokens)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.params import numpy_params
+    steps, rec = 4, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+        flat = list(numpy_params(cfg, seed))
+        batch = concrete_batch(cfg, "prefill", 2, 16,
+                               np.random.default_rng(seed), device="cpu")
+        cpu, toks = _lm_trace(cfg, flat, batch, torch.device("cpu"), steps)
+        card, _ = _lm_trace(cfg, flat, batch, torch.device("cuda"), steps,
+                            toks)
+        if dtype == "float32":
+            err_l = max(float(np.max(np.abs(c[0] - g[0])))
+                        for c, g in zip(cpu, card))
+            err_c = max(float(np.max(np.abs(c[1][k] - g[1][k])))
+                        / max(1.0, float(np.max(np.abs(c[1][k]))))
+                        for c, g in zip(cpu, card) for k in c[1])
+            ok = err_l <= 1e-4 and err_c <= 1e-4
+            rec[dtype] = dict(logits_max_abs=err_l, cache_max_scaled=err_c,
+                              ok=ok)
+            msg = (f"logits max abs {err_l:.2e}, cache max "
+                   f"{err_c:.2e} (of max(1, |leaf|)); limits 1e-4")
+        else:
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            rounded = [(p, torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+                       for p, a in flat]
+            own, _ = _lm_trace(c32, rounded, batch, torch.device("cpu"),
+                               steps, toks)
+            ratio_l = max(_rel(g[0], c[0]) / max(_rel(c[0], f[0]), 1e-30)
+                          for c, g, f in zip(cpu, card, own))
+            ratio_c = max(_rel(_cat(g[1]), _cat(c[1]))
+                          / max(_rel(_cat(c[1]), _cat(f[1])), 1e-30)
+                          for c, g, f in zip(cpu, card, own))
+            ok = ratio_l <= 2.0 and ratio_c <= 2.0
+            rec[dtype] = dict(
+                logits_rel=max(_rel(g[0], c[0]) for c, g in zip(cpu, card)),
+                own_rel=min(_rel(c[0], f[0]) for c, f in zip(cpu, own)),
+                logits_ratio=ratio_l, cache_ratio=ratio_c, ok=ok)
+            msg = (f"logits relative L2 up to {rec[dtype]['logits_rel']:.2e}"
+                   f", {ratio_l:.3f} of the CPU's own bf16 distance (cache "
+                   f"{ratio_c:.3f}); limit 2")
+        print(f"[lm] smoke {arch} {dtype}: card vs CPU, prefill + {steps} "
+              f"decode steps: {msg}")
+        if not ok:
+            raise AssertionError(f"[lm] smoke {arch} {dtype}: card and CPU "
+                                 f"disagree: {msg}")
+    return rec
+
+
+def _lm_witness(seed, out: Path, batch=4, seq=32, steps=4):
+    """llama3-8b cut to 2 layers at full width, parameters drawn with numpy
+    from ``seed`` (so the host can draw them again), on the card: the
+    prefill's and each greedy decode step's logits, with the tokens, to
+    ``out/witness_lm_llama3-8b.npz`` for ``lm_witness.py``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.params import numpy_params
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    t0 = time.perf_counter()
+    b = concrete_batch(cfg, "prefill", batch, seq, np.random.default_rng(seed),
+                       device="cpu")
+    res, fed = _lm_trace(cfg, numpy_params(cfg, seed), b,
+                         torch.device("cuda"), steps)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "witness_lm_llama3-8b.npz"
+    np.savez(path, seed=seed, arch="llama3-8b", n_layers=cfg.n_layers,
+             batch=batch, seq=seq, tokens=b["tokens"].numpy(),
+             fed=np.stack([t.numpy() for t in fed]),
+             prefill_logits=res[0][0],
+             decode_logits=np.stack([r[0] for r in res[1:]]))
+    torch.cuda.empty_cache()
+    print(f"[lm] witness: llama3-8b at 2 layers, full width, seed {seed}: "
+          f"{path} ({time.perf_counter() - t0:.1f} s)")
+    return str(path)
+
+
+def phase_lm(seed, out: Path):
+    """The LM scaffold's serving path on the card: llama3-8b at full width
+    and depth and mamba2-780m at full size (prefill 64 x 32, 16 greedy
+    decode steps, prefill against decode), llama3-8b's f32 copy cut to 2
+    layers (prefill against decode within 1e-3), the witness, every arch's
+    smoke config against the CPU, and the launcher's lm mode in process."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    rec = {}
+    llama = get_config("llama3-8b")
+    rec["llama3-8b"] = _lm_full("llama3-8b", llama, seed, 64, 32, 16,
+                                probe=True)
+    rec["llama3-8b_f32_2layers"] = _lm_full(
+        "llama3-8b f32, 2 layers",
+        dataclasses.replace(llama, n_layers=2, dtype="float32"), seed, 64,
+        32, 2)
+    rec["mamba2-780m"] = _lm_full("mamba2-780m", get_config("mamba2-780m"),
+                                  seed, 64, 32, 16, probe=True)
+    rec["witness"] = _lm_witness(seed, out)
+    rec["smoke"] = {arch: _lm_smoke(arch, seed) for arch in list_archs()}
+    t0 = time.perf_counter()
+    toks = serve.main(["--mode", "lm", "--arch", "llama3-8b"])
+    if toks.shape != (64, 17) or not ((toks >= 0)
+                                      & (toks < llama.vocab_size)).all():
+        raise AssertionError(f"[lm] launcher: tokens {toks.shape}")
+    rec["launcher"] = dict(shape=list(toks.shape),
+                           wall_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"[lm] launcher --mode lm --arch llama3-8b (smoke config): tokens "
+          f"{toks.shape}; phase done in {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2219,12 +2549,21 @@ def main() -> int:
     phase_witness(args.seed + 3, out)
     phase_witness_segtree(out)
     bench = phase_bench(args.bench_n, args.bench_nq, out)
+    torch.cuda.empty_cache()
+    lm = phase_lm(args.seed, out)
     phase_device_times()
     for name, p in mesh["probes"].items():
         p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
         print(f"[mesh] {name}: one batch {p['wall_ms']:.3f} ms of wall, "
               f"{p['device_ms']:.3f} ms of device time, "
               f"{p['launches_per_call']:g} device launches: idle share "
+              f"{p['idle_share']:.3f}")
+    for name in ("llama3-8b", "mamba2-780m"):
+        p = lm[name]["probe"]
+        p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
+        print(f"[lm] {name}: one decode step {p['wall_ms']:.3f} ms of wall "
+              f"(the 16 steps' mean), {p['device_ms']:.3f} ms of device "
+              f"time, {p['launches_per_call']:g} device launches: idle share "
               f"{p['idle_share']:.3f}")
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
@@ -2375,7 +2714,7 @@ def main() -> int:
     details = dict(card=card, build_seconds=build_s, range_scan=rs,
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
                    gather_rerank=rr, l2dist=l2, full=full, serve=served,
-                   stream=stream, mesh=mesh, bench=bench,
+                   stream=stream, mesh=mesh, bench=bench, lm=lm,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

@@ -1,0 +1,10 @@
+"""qwen2.5-14b — dense GQA, QKV bias. [hf:Qwen/Qwen2.5-0.5B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-14b", family="dense",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=13824, vocab_size=152064,
+    qkv_bias=True, rope_theta=1000000.0, remat="full", remat_group=4,
+    source="hf:Qwen/Qwen2.5-0.5B (assignment card)",
+)

@@ -1,0 +1,11 @@
+"""starcoder2-15b — dense, GQA(kv=4), RoPE. [arXiv:2402.19173; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="starcoder2-15b", family="dense",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4,
+    d_ff=24576, vocab_size=49152,
+    mlp_act="gelu", norm="layernorm", qkv_bias=True,
+    rope_theta=100000.0, remat="full", remat_group=4,
+    source="arXiv:2402.19173",
+)

@@ -1,15 +1,51 @@
-"""Algorithm 1 — Fast Range-Aware Pruning (RRNGPrune), vectorized in torch.
+"""Algorithm 1 — Fast Range-Aware Pruning (RRNGPrune).
 
-Per node the candidate side-arrays are pre-sorted by rank gap; the
-sequential keep/prune recurrence runs as a loop over candidates against
-precomputed distance tiles, on the device, in row blocks.  Every op is
-row-independent, so the block size cannot change any row's result.
+Two implementations:
+
+* ``rrng_prune_np``: faithful per-node host oracle (numpy), matching the
+  paper's pseudocode line by line (split at x.a — Lemma 4.1; scan each side
+  by ascending attribute gap — Lemma 4.2; keep ≤ m/2 per side).
+* ``prune_all``: the construction engine, vectorized in torch.  Per node
+  the candidate side-arrays are pre-sorted by rank gap; the sequential
+  keep/prune recurrence runs as a loop over candidates against precomputed
+  distance tiles, on the device, in row blocks.  Every op is
+  row-independent, so the block size cannot change any row's result.
 
 Ids are attribute ranks (dataset pre-sorted by attribute)."""
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
+
+
+def _sq(a, b):
+    diff = a - b
+    return float(np.dot(diff, diff))
+
+
+def rrng_prune_np(x: int, cands: np.ndarray, vecs: np.ndarray, m: int) -> List[int]:
+    """Faithful Algorithm 1. cands: candidate ids (any order, != x)."""
+    cands = np.asarray([c for c in np.unique(cands) if c != x and c >= 0])
+    c_l = sorted([c for c in cands if c < x], key=lambda c: x - c)   # asc gap
+    c_r = sorted([c for c in cands if c > x], key=lambda c: c - x)
+    half = max(m // 2, 1)
+
+    def prune(side):
+        kept: List[int] = []
+        for vi in side:
+            d_xi = _sq(vecs[x], vecs[vi])
+            ok = True
+            for vj in kept:
+                if _sq(vecs[x], vecs[vj]) < d_xi and _sq(vecs[vj], vecs[vi]) < d_xi:
+                    ok = False
+                    break
+            if ok and len(kept) < half:
+                kept.append(vi)
+        return kept
+
+    return prune(c_l) + prune(c_r)
 
 
 def prune_side(x_vecs: torch.Tensor, cand_ids: torch.Tensor,

@@ -73,7 +73,8 @@ def mrng_prune_graph(vecs, knn_ids: np.ndarray, m: int,
 
 def add_reverse_edges(nbrs: np.ndarray, cap: int, device=None) -> np.ndarray:
     """NSG-style reverse-edge augmentation, degree-capped: the reference's
-    sequential loop, as array operations on ``device`` (default the CPU).
+    sequential loop, as array operations on ``device`` (``None``: the card,
+    raising without one).
 
     The loop visits sources u in ascending order and each row's ids up to
     its first -1; it appends u to row v when v has room (fewer than ``cap``
@@ -83,7 +84,7 @@ def add_reverse_edges(nbrs: np.ndarray, cap: int, device=None) -> np.ndarray:
     stands in the first ``fill[v]`` slots of the input row; the loop thus
     appends, in ascending order, the first cap − fill[v] such sources,
     from slot fill[v] on."""
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     nb = torch.as_tensor(np.asarray(nbrs, np.int32), device=dev).long()
     n, m = nb.shape
     ext = torch.full((n, cap), -1, dtype=torch.long, device=dev)
@@ -147,8 +148,8 @@ def connectivity_repair(nbrs: np.ndarray, vecs: np.ndarray, entry: int,
     unlabelled source labelling what it reaches through unlabelled nodes (a
     frontier walk here, a depth-first one there: the same set), then the
     same four sweeps of label merging across edges, which may leave a
-    component split.  The cross-pair distances run on ``device`` (default
-    the CPU)."""
+    component split.  The cross-pair distances run on ``device``
+    (``None``: the card, raising without one)."""
     n, m = nbrs.shape
     nbrs = nbrs.copy()
     comp = np.full(n, -1, np.int64)
@@ -179,7 +180,7 @@ def connectivity_repair(nbrs: np.ndarray, vecs: np.ndarray, entry: int,
             break
     main = comp[entry]
     vmain = np.flatnonzero(comp == main)
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     v_main = torch.as_tensor(vecs[vmain], device=dev)
     for c in np.unique(comp):
         if c == main:

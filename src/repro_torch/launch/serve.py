@@ -1,19 +1,24 @@
-"""Serving launcher of the port: the reference's ``repro.launch.serve``
-rfann mode on one device.
+"""Serving launcher of the port: the reference's ``repro.launch.serve`` on
+one device.
 
 ``--mode rfann`` (the paper's kind): build an RNSG over a synthetic corpus and
 drive the dynamic-batching engine with Poisson request arrivals — reports
 QPS, recall and latency percentiles.
 
+``--mode lm``: batched LM serving (prefill + greedy decode loop) of
+``--arch``'s smoke config, parameters drawn from seed 0; prints the decode
+rate and a sample continuation, and ``main`` returns the tokens (batch ×
+(1 + ``--new-tokens``)).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --mode rfann --n 8192 --requests 512
   PYTHONPATH=src python -m repro_torch.launch.serve --mode rfann --device cpu --n 1024 --dim 16 --requests 48
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --device cpu --arch qwen1.5-4b --new-tokens 4
 
-``--device`` (default ``cuda``) is where the index is built and searched;
-``cpu`` runs the kernels' plain PyTorch versions.  ``--build-shards S``
-routes a fresh static build through the sharded constructor
-(``RNSGIndex.build_sharded``) over S slabs placed on ``--device``
-(bit-identical output).  ``--mode lm`` belongs to a later slice of the port
-and exits with an error naming it.
+``--device`` (default ``cuda``) is where the index is built and searched,
+or the model runs; ``cpu`` runs the kernels' plain PyTorch versions.
+``--build-shards S`` routes a fresh static build through the sharded
+constructor (``RNSGIndex.build_sharded``) over S slabs placed on
+``--device`` (bit-identical output).
 
 ``--metrics-path out.prom`` dumps the final metrics snapshot on shutdown:
 Prometheus text exposition at the given path plus a JSON sibling
@@ -32,8 +37,8 @@ acknowledged, restart replays the uncompacted tail onto the
 checkpoint, persist calibration + metrics), and a WAL write failure
 degrades the server to read-only instead of crashing it.
 
-``main`` returns the run's record: ``recall``, ``qps``, ``served``,
-``seconds``, the engine's ``summary``, the served ``ids`` and each
+In rfann mode ``main`` returns the run's record: ``recall``, ``qps``,
+``served``, ``seconds``, the engine's ``summary``, the served ``ids`` and each
 request's routing (``strategy``, the planner's ``SCAN`` / ``BEAM``),
 ``restored`` (``None`` after a build, else the restore's ``seconds`` and,
 streaming, the ``replayed`` WAL records and the live set right after the
@@ -271,12 +276,50 @@ def serve_rfann(args) -> dict:
     return out
 
 
+def serve_lm(args):
+    """Prefill a batch of ``--max-batch`` × 32 tokens, then decode
+    ``--new-tokens`` greedy tokens; returns the tokens (numpy)."""
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.lm import Model
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    b, s = args.max_batch, 32
+    batch = concrete_batch(cfg, "prefill", b, s, rng, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.inference_mode():
+        cache, logits = model.prefill(params, batch,
+                                      cache_len=s + args.new_tokens)
+        toks = [torch.argmax(logits[:, :cfg.vocab_size], -1).int()]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(args.new_tokens):
+            logits, cache = model.decode(params, cache, s + i, toks[-1])
+            toks.append(torch.argmax(logits[:, :cfg.vocab_size], -1).int())
+        sync()
+        dt = time.perf_counter() - t0
+    out = torch.stack(toks, 1).cpu().numpy()
+    print(f"[serve] {args.arch}: batch={b} decoded {args.new_tokens} tokens "
+          f"in {dt:.2f}s ({b*args.new_tokens/dt:.0f} tok/s)")
+    print(f"[serve] sample continuation ids: {out[0][:12].tolist()}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["rfann", "lm"], default="rfann")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="lm mode: the architecture (its smoke config)")
     ap.add_argument("--device", default="cuda",
-                    help="device the index is built and searched on "
-                         "(cuda | cpu)")
+                    help="device the index is built and searched on, or the "
+                         "model runs on (cuda | cpu)")
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--requests", type=int, default=256)
@@ -336,11 +379,11 @@ def main(argv=None):
                     help="WAL durability: fsync per record / group commit "
                          "(every N records or T seconds) / OS page cache "
                          "only")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="lm mode: greedy tokens decoded after the prefill")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        ap.error("--mode lm arrives with the LM-scaffold slice of the port "
-                 "(ROADMAP.md queue 1 item 6); serve it with "
-                 "repro.launch.serve")
+        return serve_lm(args)
     return serve_rfann(args)
 
 

@@ -1,0 +1,312 @@
+"""Unified model: dense / MoE / SSM / hybrid / enc-dec / VLM families (the
+reference's ``repro.models.lm``, serving half).
+
+One ``Model`` per ``ArchConfig``.  Parameters are the reference's tree of
+group-stacked tensors (``params["blocks"][...]`` has a leading ``(G, ...)``
+axis; a group is 1 layer for uniform stacks, ``attn_every`` layers for
+hybrids, ``cross_attn_every`` for VLMs), and the layer stack is a Python
+loop over the groups where the reference scans.  ``prefill`` builds the
+decode cache in the reference's stacked layout, leaf for leaf; ``decode``
+writes it in place (the reference donates it) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import embed_tokens, mlp, norm
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.params import (DTYPES, ModelDims, ShardPlan,
+                                       init_params, resolve_dims)
+
+
+def _mlp_block(x, p, cfg):
+    return x + mlp(norm(x, p, cfg.norm), p, cfg.mlp_act)
+
+
+def _group(tree, g: int):
+    """The g-th group's slice of a stacked tree (views)."""
+    return {k: _group(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, plan: ShardPlan = ShardPlan(),
+                 mesh=None, opts: Optional[Dict] = None, device=None):
+        """``device``: where the parameters, inputs and caches live
+        (``None``: the card, raising without one).  opts: ``q_chunk`` /
+        ``kv_chunk`` (flash-attention tile sizes) and ``ssm_chunk`` (SSD
+        chunk length); the reference's dry-run options (``unroll``,
+        ``block_skip``) are accepted and ignored.  ``mesh`` of more than one
+        device is the training slice's (``moe_ffn`` raises)."""
+        super().__init__()
+        self.cfg = cfg
+        self.plan = plan
+        self.dm: ModelDims = resolve_dims(cfg, plan)
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        self.opts = dict(opts or {})
+        self._attn_opts = {k: self.opts[k] for k in
+                           ("q_chunk", "kv_chunk", "unroll", "block_skip")
+                           if k in self.opts}
+        self._ssm_opts = {k: self.opts[k] for k in ("ssm_chunk",)
+                          if k in self.opts}
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: torch.Generator) -> Dict:
+        """Parameters drawn with ``generator`` (on ``self.device``)."""
+        return init_params(self.cfg, self.plan, generator, self.device)
+
+    # ------------------------------------------------------------- embedding
+    def _embed(self, params, tokens):
+        return embed_tokens(tokens, params["embed"])
+
+    def _head_matrix(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def _logits(self, params, x):
+        """f32 logits over the padded vocab: products in x's dtype, summed
+        in f32."""
+        return x.float() @ self._head_matrix(params).to(x.dtype).float()
+
+    # ------------------------------------------------------------- encoder
+    def _encode(self, params, frames):
+        cfg, dm = self.cfg, self.dm
+        x = frames
+        if "frontend_proj" in params:
+            x = x @ params["frontend_proj"]
+        x = x.to(DTYPES[cfg.dtype])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for g in range(dm.enc_layers):
+            pl = _group(params["enc_blocks"], g)
+            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions,
+                                         causal=False, opts=self._attn_opts)
+            x = _mlp_block(x, pl["mlp"], cfg)
+        return norm(x, params, cfg.norm, "enc_final_norm")
+
+    def _memory(self, params, batch):
+        """Frontend memory for encdec (audio frames) / vlm (image patches)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return self._encode(params, batch["frames"])
+        if cfg.family == "vlm":
+            x = batch["patches"]
+            if "frontend_proj" in params:
+                x = x @ params["frontend_proj"]
+            return x.to(DTYPES[cfg.dtype])
+        return None
+
+    # ------------------------------------------------------------- serve
+    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+        cfg, dm = self.cfg, self.dm
+        G = dm.groups
+        bf = DTYPES[cfg.dtype]
+        mk = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
+        cache: Dict = {}
+        if cfg.family in ("dense", "moe", "encdec"):
+            cache["k"] = mk((G, batch_size, max_len, dm.kh, dm.hd), bf)
+            cache["v"] = mk((G, batch_size, max_len, dm.kh, dm.hd), bf)
+        if cfg.family == "vlm":   # one KV slot per in-group self-attn layer
+            gl = dm.group_layers
+            cache["k"] = mk((G, gl, batch_size, max_len, dm.kh, dm.hd), bf)
+            cache["v"] = mk((G, gl, batch_size, max_len, dm.kh, dm.hd), bf)
+        if cfg.family == "ssm":
+            cache["state"] = mk((G, batch_size, dm.ssm_h, dm.ssm_p, dm.ssm_n),
+                                torch.float32)
+            cache["conv"] = mk((G, batch_size, dm.conv_w - 1, dm.conv_dim), bf)
+        if cfg.family == "hybrid":
+            gl = dm.group_layers
+            cache["k"] = mk((G, batch_size, max_len, dm.kh, dm.hd), bf)
+            cache["v"] = mk((G, batch_size, max_len, dm.kh, dm.hd), bf)
+            cache["state"] = mk((G, gl - 1, batch_size, dm.ssm_h, dm.ssm_p, dm.ssm_n),
+                                torch.float32)
+            cache["conv"] = mk((G, gl - 1, batch_size, dm.conv_w - 1, dm.conv_dim), bf)
+        if cfg.family == "encdec":
+            enc_len = max_len // 4
+            cache["ck"] = mk((G, batch_size, enc_len, dm.kh, dm.hd), bf)
+            cache["cv"] = mk((G, batch_size, enc_len, dm.kh, dm.hd), bf)
+        if cfg.family == "vlm":
+            cache["ck"] = mk((G, batch_size, cfg.n_frontend_tokens, dm.kh, dm.hd), bf)
+            cache["cv"] = mk((G, batch_size, cfg.n_frontend_tokens, dm.kh, dm.hd), bf)
+        return cache
+
+    def _prefill_group(self, x, pl, positions, memory, pad_kv):
+        """One group, full sequence: (x, this group's cache leaves)."""
+        cfg, dm = self.cfg, self.dm
+        ao = self._attn_opts
+        ys = {}
+        if cfg.family in ("dense", "moe"):
+            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
+            x = x + o
+            ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
+            if cfg.family == "moe":
+                x = x + moe_ffn(x, pl["moe"], cfg, dm, self.mesh)[0]
+            else:
+                x = _mlp_block(x, pl["mlp"], cfg)
+        elif cfg.family == "ssm":
+            o, (st, conv) = ssm_mod.mamba_train(x, pl["ssm"], cfg, dm,
+                                                return_state=True,
+                                                opts=self._ssm_opts)
+            x = x + o
+            ys["state"], ys["conv"] = st, conv
+        elif cfg.family == "hybrid":
+            sts, convs = [], []
+            for j in range(dm.group_layers):
+                if j == 0:
+                    o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm,
+                                                       positions, opts=ao)
+                    x = x + o
+                    ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
+                else:
+                    o, (st, conv) = ssm_mod.mamba_train(
+                        x, pl[f"ssm{j}"], cfg, dm, return_state=True,
+                        opts=self._ssm_opts)
+                    x = x + o
+                    sts.append(st)
+                    convs.append(conv)
+                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
+                    x = x + moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)[0]
+                else:
+                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
+            ys["state"] = torch.stack(sts)
+            ys["conv"] = torch.stack(convs)
+        elif cfg.family == "encdec":
+            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
+            x = x + o
+            ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
+            ck, cv = attn.cross_kv(memory, pl["cross"], cfg, dm)
+            x = x + attn.cross_attn(x, (ck, cv), pl["cross"], cfg, dm, opts=ao)
+            ys["ck"], ys["cv"] = ck, cv
+            x = _mlp_block(x, pl["mlp"], cfg)
+        elif cfg.family == "vlm":
+            ks, vs = [], []
+            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
+            x = x + o
+            ks.append(pad_kv(k))
+            vs.append(pad_kv(v))
+            ck, cv = attn.cross_kv(memory, pl["cross"], cfg, dm)
+            x = x + attn.cross_attn(x, (ck, cv), pl["cross"], cfg, dm, opts=ao)
+            ys["ck"], ys["cv"] = ck, cv
+            x = _mlp_block(x, pl["mlp"], cfg)
+            for j in range(1, dm.group_layers):
+                o, (k, v) = attn.self_attn_prefill(x, pl[f"attn{j}"], cfg, dm,
+                                                   positions, opts=ao)
+                x = x + o
+                ks.append(pad_kv(k))
+                vs.append(pad_kv(v))
+                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
+            ys["k"], ys["v"] = torch.stack(ks), torch.stack(vs)
+        return x, ys
+
+    def prefill(self, params, batch, cache_len: Optional[int] = None):
+        """Full-sequence forward that also builds the decode cache.
+        Returns (cache, logits_last:(B,vocab) f32 over the padded vocab)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache_len = cache_len or s
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        memory = self._memory(params, batch)
+        x = self._embed(params, tokens)
+
+        def pad_kv(k):
+            if cache_len == s:
+                return k
+            return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cache_len - s))
+
+        G = self.dm.groups
+        cache = None
+        for g in range(G):
+            x, ys = self._prefill_group(x, _group(params["blocks"], g),
+                                        positions, memory, pad_kv)
+            if cache is None:           # the stacked (G, ...) leaves
+                cache = {k: v.new_empty((G, *v.shape)) for k, v in ys.items()}
+            for k, v in ys.items():
+                cache[k][g] = v
+        x = norm(x, params, cfg.norm, "final_norm")
+        return cache, self._logits(params, x[:, -1])
+
+    def forward(self, params, batch, cache_len: Optional[int] = None):
+        """``prefill``."""
+        return self.prefill(params, batch, cache_len)
+
+    def _cross_dec(self, x, pc, ck, cv):
+        cfg, dm = self.cfg, self.dm
+        h = norm(x, pc, cfg.norm)
+        b = x.shape[0]
+        q = (h @ pc["wq"]).reshape(b, 1, dm.h, dm.hd)
+        if cfg.qkv_bias:
+            q = q + pc["bq"].reshape(dm.h, dm.hd)
+        o = attn.decode_attention(q, ck, cv, cur_len=ck.shape[1])
+        return x + o.reshape(b, 1, dm.h * dm.hd) @ pc["wo"]
+
+    def _decode_group(self, x, pl, cl, cur_len: int):
+        """One group, one token; writes the group's cache views ``cl``."""
+        cfg, dm = self.cfg, self.dm
+        fam = cfg.family
+        if fam in ("dense", "moe", "encdec"):
+            o, _, _ = attn.self_attn_decode(x, pl["attn"], cfg, dm,
+                                            cl["k"], cl["v"], cur_len)
+            x = x + o
+        if fam == "moe":
+            x = x + moe_ffn(x, pl["moe"], cfg, dm, self.mesh)[0]
+        elif fam == "dense":
+            x = _mlp_block(x, pl["mlp"], cfg)
+        elif fam == "ssm":
+            o, st, conv = ssm_mod.mamba_decode(x, pl["ssm"], cfg, dm,
+                                               cl["state"], cl["conv"])
+            x = x + o
+            cl["state"].copy_(st)
+            cl["conv"].copy_(conv)
+        elif fam == "hybrid":
+            for j in range(dm.group_layers):
+                if j == 0:
+                    o, _, _ = attn.self_attn_decode(
+                        x, pl["attn"], cfg, dm, cl["k"], cl["v"], cur_len)
+                    x = x + o
+                else:
+                    o, st, conv = ssm_mod.mamba_decode(
+                        x, pl[f"ssm{j}"], cfg, dm,
+                        cl["state"][j - 1], cl["conv"][j - 1])
+                    x = x + o
+                    cl["state"][j - 1].copy_(st)
+                    cl["conv"][j - 1].copy_(conv)
+                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
+                    x = x + moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)[0]
+                else:
+                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
+        elif fam == "encdec":
+            x = self._cross_dec(x, pl["cross"], cl["ck"], cl["cv"])
+            x = _mlp_block(x, pl["mlp"], cfg)
+        elif fam == "vlm":   # per-in-group-layer self-attn caches
+            o, _, _ = attn.self_attn_decode(
+                x, pl["attn"], cfg, dm, cl["k"][0], cl["v"][0], cur_len)
+            x = x + o
+            x = self._cross_dec(x, pl["cross"], cl["ck"], cl["cv"])
+            x = _mlp_block(x, pl["mlp"], cfg)
+            for j in range(1, dm.group_layers):
+                o, _, _ = attn.self_attn_decode(
+                    x, pl[f"attn{j}"], cfg, dm, cl["k"][j], cl["v"][j],
+                    cur_len)
+                x = x + o
+                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
+        return x
+
+    def decode(self, params, cache, cur_len: int, token):
+        """token:(B,) int; cur_len: the position written (a Python int).
+        Returns (logits, cache), the cache updated in place."""
+        cfg = self.cfg
+        x = self._embed(params, token[:, None])
+        for g in range(self.dm.groups):
+            x = self._decode_group(x, _group(params["blocks"], g),
+                                   _group(cache, g), int(cur_len))
+        x = norm(x, params, cfg.norm, "final_norm")
+        return self._logits(params, x[:, -1]), cache

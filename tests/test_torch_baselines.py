@@ -72,7 +72,7 @@ def test_add_reverse_edges_matches_reference(kind, n, m, extra):
     """cap = m saturates most rows, m + 12 leaves them unsaturated."""
     nb = _graph(np.random.default_rng(n * 31 + m + extra), n, m, kind)
     want = R.add_reverse_edges(nb, m + extra)
-    got = T.add_reverse_edges(nb, m + extra)
+    got = T.add_reverse_edges(nb, m + extra, device="cpu")
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
@@ -91,8 +91,9 @@ def test_connectivity_repair_matches_reference(seed):
         nb[i, :k] = rng.choice(same, k)
     nb[rng.integers(0, n, 3), m - 1] = rng.integers(0, n, 3)
     for entry in (0, int(rng.integers(0, n))):
-        assert np.array_equal(T.connectivity_repair(nb, v, entry),
-                              R.connectivity_repair(nb, v, entry))
+        assert np.array_equal(
+            T.connectivity_repair(nb, v, entry, device="cpu"),
+            R.connectivity_repair(nb, v, entry))
 
 
 @pytest.mark.parametrize("m", [4, 16])

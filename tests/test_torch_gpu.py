@@ -1,8 +1,9 @@
 """On the card: each hand-written kernel against its plain PyTorch version
 (f32, int8 and bf16 corpora; the f32 rerank at every M and k; l2dist; the
 fused beam against the lockstep loop), the quantized corpus against the
-CPU's bit for bit, and the slices end to end (the benchmark's baselines
-and the 8-shard mesh and sharded build on one card included).  Marked
+CPU's bit for bit, and the slices end to end (the benchmark's baselines,
+the 8-shard mesh and sharded build on one card, and one LM of each family
+against the CPU included).  Marked
 ``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
 present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
 import copy
@@ -473,6 +474,58 @@ def test_range_scan_every_regime_matches_plain(cuda, precision, k, bucket):
             gi, gd = (t.cpu().numpy() for t in got)
             assert gi[3, 0] == 950 and gi[3, 1] == 1050
             assert gd[3, 0] == gd[3, 1]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b", "mamba2-780m",
+                                  "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_lm_family_on_card_matches_cpu(cuda, arch):
+    """One arch per family, smoke config in f32 (TF32 off), parameters from
+    numpy: the card's prefill and two decode steps (fed the CPU's greedy
+    tokens) equal the CPU's logits and caches within 1e-4 (caches scaled
+    by max(1, |leaf|)), and on the card the first decode step's logits
+    equal the last position of a prefill one token longer within 1e-3."""
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import numpy_params, params_from_reference
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    flat = list(numpy_params(cfg, 0))
+    batch = concrete_batch(cfg, "prefill", 2, 16, np.random.default_rng(0),
+                           device="cpu")
+    runs, toks = {}, []
+    for dev in (torch.device("cpu"), cuda):
+        model = Model(cfg, device=dev)
+        params = params_from_reference(flat, cfg, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out = []
+        with torch.inference_mode():
+            cache, logits = model.prefill(params, b, cache_len=19)
+            for i in range(3):
+                out.append((logits.cpu().numpy().copy(),
+                            {k: v.cpu().numpy().copy()
+                             for k, v in cache.items()}))
+                if i == 2:
+                    break
+                if dev.type == "cpu":
+                    toks.append(torch.argmax(logits[:, :cfg.vocab_size], -1)
+                                .int())
+                logits, cache = model.decode(params, cache, 16 + i,
+                                             toks[i].to(dev))
+                if i == 0:
+                    l_dec = logits
+            full = dict(b, tokens=torch.cat([b["tokens"],
+                                             toks[0][:, None].to(dev)], 1))
+            l_full = model.prefill(params, full)[1]
+        assert (l_dec - l_full).abs().max().item() < 1e-3, dev
+        runs[dev.type] = out
+    for (lc, cc), (lg, cg) in zip(runs["cpu"], runs["cuda"]):
+        assert np.abs(lg - lc).max() <= 1e-4
+        for k in cc:
+            assert np.abs(cg[k] - cc[k]).max() <= 1e-4 * max(
+                1.0, float(np.abs(cc[k]).max())), k
 
 
 @pytest.mark.parametrize("bucket,k", [(64, 10), (8192, 10), (8192, 128),

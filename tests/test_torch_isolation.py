@@ -55,7 +55,16 @@ def test_port_modules_all_present():
             "search/cache.py", "index/io.py", "serving/engine.py",
             "streaming/wal.py", "streaming/delta.py",
             "streaming/streaming.py", "runtime/fault_tolerance.py",
-            "launch/serve.py"]
+            "launch/serve.py", "core/exact.py", "configs/base.py",
+            "configs/registry.py", "configs/llama3_8b.py",
+            "configs/mixtral_8x7b.py", "configs/mamba2_780m.py",
+            "configs/jamba_1_5_large_398b.py", "configs/starcoder2_15b.py",
+            "configs/qwen1_5_4b.py", "configs/qwen2_5_14b.py",
+            "configs/seamless_m4t_large_v2.py",
+            "configs/llama_3_2_vision_11b.py",
+            "configs/llama4_maverick_400b_a17b.py", "models/params.py",
+            "models/layers.py", "models/attention.py", "models/ssm.py",
+            "models/moe.py", "models/lm.py", "launch/specs.py"]
     assert [p for p in want if not (PORT / p).exists()] == []
 
 
@@ -91,7 +100,13 @@ def no_card():
 
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core.rfann import RNSGIndex
+    from repro_torch.index.baselines import (add_reverse_edges,
+                                             connectivity_repair)
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.lm import Model
     from repro_torch.data.ann import ground_truth, make_attrs, make_vectors
     from repro_torch.search import SearchSubstrate
     v, a = make_vectors(64, 4), make_attrs(64)
@@ -110,6 +125,20 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     res = RNSGIndex.load(str(tmp_path / "g.npz"), device="cpu").search(
         v[:2], np.asarray([[0, 1], [0, 1]], np.float32), k=3)
     assert res.ids.shape == (2, 3)
+    nb = np.asarray(g.nbrs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        add_reverse_edges(nb, 6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        connectivity_repair(nb, v[np.argsort(a, kind="stable")], 0)
+    assert add_reverse_edges(nb, 6, device="cpu").shape == (64, 6)
+    cfg = get_smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        concrete_batch(cfg, "prefill", 2, 8, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--mode", "lm", "--new-tokens", "1"])
+    assert Model(cfg, device="cpu").device.type == "cpu"
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -218,11 +218,13 @@ def test_launcher_rfann_end_to_end_and_restore(tmp_path, capsys):
 
 
 def test_launcher_refuses_other_slices(capsys):
-    """``--mode lm`` waits for the LM-scaffold slice; ``--build-shards``
-    (the multi-device slice) is in, so it serves."""
-    with pytest.raises(SystemExit):
-        serve.main(["--mode", "lm", "--device", "cpu"])
-    assert "LM-scaffold slice" in capsys.readouterr().err
+    """Every mode and option the launcher names is served now: ``--mode lm``
+    (the LM-scaffold slice) returns its tokens, ``--build-shards`` (the
+    multi-device slice) builds through the sharded constructor."""
+    toks = serve.main(["--mode", "lm", "--device", "cpu", "--max-batch", "2",
+                       "--new-tokens", "2"])
+    assert toks.shape == (2, 3)
+    assert "sample continuation ids" in capsys.readouterr().out
     rec = serve.main(_SMALL + ["--requests", "16", "--build-shards", "2"])
     assert rec["served"] == 16
     assert "building RNSG index (2 shards)" in capsys.readouterr().out
