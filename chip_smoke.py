@@ -114,7 +114,28 @@ Phases, each printing its lines:
              the ground truth on every query, and no baseline search may
              launch a gather kernel.
              Also prints NNDescent's recall against the exact KNN graph;
-11. lm     — the LM scaffold's serving path (no hand kernel: plain torch
+11. train  — the LM scaffold's training half (no hand kernel: plain torch
+             ops under autograd, cuBLAS products): qwen1.5-4b at full
+             width and depth (40 layers, bf16, f32 moments, remat full in
+             super-groups of 2; seq 4096, batch 2: the global batch of
+             train_4k cut from 256, for time) and mamba2-780m at full size
+             (seq 4096, 4 micro-batches of 2), 3 steps each of
+             ``build_train_step`` on the launcher's token stream and
+             schedule: parameters and state bytes, init, each step's ms
+             (CUDA events and the host clock), tok/s, peak memory and the
+             step's bound, loss and gradient norm finite and > 0;
+             mamba2-780m's state through an async ``CheckpointManager``
+             save and a restore that must be bit-equal; qwen1.5-4b's f32
+             copy cut to 2 layers at full width (numpy parameters from the
+             seed): a central-difference gradient check along a seeded
+             direction and the witness
+             ``chiprun_out/witness_train_qwen1.5-4b.npz`` for
+             ``lm_witness.py``; every arch's smoke config in f32, loss,
+             gradients and one train step on the card against the CPU; the
+             launcher's own cases (``launch.train.main``: the loss falls
+             over 30 steps; a resume through a checkpoint replays the
+             losses);
+12. lm     — the LM scaffold's serving path (no hand kernel: plain torch
              ops and cuBLAS products): llama3-8b at full width and depth
              (bf16, parameters drawn on the card from ``--seed``) and
              mamba2-780m at full size, each a prefill of 64 x 32 tokens and
@@ -130,16 +151,18 @@ Phases, each printing its lines:
              same port code on the CPU (f32 and bf16, prefill and 4 decode
              steps, logits and caches); the launcher's ``--mode lm`` in
              process;
-12. device times — range_scan's, gather_rerank's and l2dist's timed parity
+13. device times — range_scan's, gather_rerank's and l2dist's timed parity
              shapes again, one batch of the mesh phase's mesh and
-             local async paths, and one decode step of the lm phase's
-             llama3-8b and mamba2-780m (their idle shares),
-             under torch.profiler: device time and device launches per
-             call (last, because a profiler session slows the host-side
-             torch ops of every later phase);
-13. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
+             local async paths, one decode step of the lm phase's
+             llama3-8b and mamba2-780m, then (their models freed) one
+             qwen1.5-4b and one mamba2-780m train step, each on a state
+             drawn again (their idle shares; a train step's from its own
+             wall), under torch.profiler: device time and device
+             launches per call (last, because a profiler session slows the
+             host-side torch ops of every later phase);
+14. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
     path under ``mesh_launches``);
-14. the last line ``{"ok": true, "device": {...}}``.
+15. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -203,12 +226,16 @@ def _device_probe(rec: dict, fn, label: str, calls: int = 10) -> None:
 
 
 def phase_device_times():
-    """The queued device-time readings, after every timed phase."""
-    for rec, fn, calls, label in _DEVICE_PROBES:
+    """The queued device-time readings, after every timed phase; each
+    probe's call (and what it holds on the card) is dropped once read."""
+    import torch
+    while _DEVICE_PROBES:
+        rec, fn, calls, label = _DEVICE_PROBES.pop(0)
         rec["device_ms"], rec["launches_per_call"], _ = _device_ms(fn, calls)
         print(f"[device] {label}: device_ms={rec['device_ms']:.4f} "
               f"({rec['launches_per_call']:g} launches per call)")
-    _DEVICE_PROBES.clear()
+        del fn
+    torch.cuda.empty_cache()
 
 
 def _device_ms(fn, calls: int = 10):
@@ -2195,11 +2222,6 @@ LM_F32_ATOL = 1e-3
 LM_BF16_REL = 0.1
 
 
-def _leaves(tree):
-    for v in tree.values():
-        yield from _leaves(v) if isinstance(v, dict) else (v,)
-
-
 def _rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
@@ -2221,6 +2243,7 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
     from repro_torch.launch.specs import concrete_batch
     from repro_torch.models.lm import Model
     from repro_torch.models.params import count_params
+    from repro_torch.training.tree import leaves
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -2233,11 +2256,11 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     if n_params != count_params(cfg):
         raise AssertionError(f"[lm] {label}: {n_params} parameters, the "
                              f"spec {count_params(cfg)}")
-    p_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     emb = params["embed"]
     # a step gathers rows of an untied embedding table; every other weight
     # (a tied table is the head) is a product operand read whole.  The head
@@ -2271,7 +2294,7 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(steps)]
-        c_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+        c_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
         del cache
         _, l_full = model.prefill(params, dict(
             b, tokens=torch.cat([b["tokens"], toks[0][:, None]], 1)))
@@ -2499,6 +2522,452 @@ def phase_lm(seed, out: Path):
     return rec
 
 
+# ---------------------------------------------------------------- train
+#: the train phase's tolerances.  Card against CPU in f32 (TF32 off): the
+#: loss within 1e-5 and each gradient leaf within 1e-4·max(1, max |g|) (the
+#: devices sum in other orders, and the card's scatter-adds are unordered).
+#: After one AdamW step the parameters: the first step moves an element by
+#: lr·g/(|g| + 1e-8), whose slope near |g| ~ 1e-8 is 1e8/4, so a gradient
+#: that differs between the devices by 1e-9 there moves its parameter by
+#: up to 0.1·lr more on one of them.  Every parameter within 2·lr, and
+#: every one that differs by more than 1e-5 must have a (clipped) gradient
+#: within 1e-6 of 0.  The full-width gradient check: the central
+#: difference of the f32 loss at ε = 1e-4 along a seeded N(0, 1) direction
+#: against ⟨∇L, v⟩ within relative 1e-2 (the f32 loss's rounding is about
+#: 1e-6, a few 1e-3 of the quotient's signal; the curvature term is O(ε²)).
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_STEP_LR = 1e-2
+TRAIN_FD_EPS = 1e-4
+TRAIN_FD_REL = 1e-2
+#: the launcher's schedule (--lr 3e-3 --warmup 10, total max(steps, 100))
+TRAIN_SCHEDULE = dict(base_lr=3e-3, warmup=10, total=100)
+
+
+def _train_bound(cfg, n_params, emb_numel, tokens, batch, seq, opt_bytes):
+    """(ms, by): the larger of the step's products at the bf16 dense peak
+    (6 × matmul parameters × tokens, plus the attention's 12·L·B·S²·d; an
+    untied embedding table is gathered, not multiplied) and the
+    optimizer's bytes at the HBM rate.  Remat's recompute is not counted."""
+    mm = n_params - (0 if cfg.tie_embeddings else emb_numel)
+    layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, 0)
+    d_attn = cfg.n_heads * cfg.resolved_head_dim
+    flops = 6.0 * mm * tokens + 12.0 * layers * batch * seq ** 2 * d_attn
+    return _bound(opt_bytes, flops, BF16_FLOPS) + (flops,)
+
+
+def _train_full(label, cfg, seed, batch, seq, steps, micro=1,
+                keep_state=False):
+    """One model trained on the card: its state drawn there from ``seed``
+    (``init_train_state``), ``steps`` steps of ``build_train_step`` with
+    the launcher's schedule on the launcher's token stream, ``micro``
+    micro-batches of ``batch`` sequences each.  Prints each number beside
+    its bound; loss and gradient norm must be finite and > 0."""
+    import torch
+    from repro_torch.data.tokens import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.training.optim import cosine_schedule
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    from repro_torch.training.tree import leaves
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    params, opt = state["params"], state["opt"]
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != count_params(cfg):
+        raise AssertionError(f"[train] {label}: {n_params} parameters, the "
+                             f"spec {count_params(cfg)}")
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in leaves(tree))
+    p_bytes, mv_bytes = nbytes(params), nbytes(opt["m"]) + nbytes(opt["v"])
+    g_bytes = p_bytes if micro == 1 else 4 * n_params
+    tokens = batch * micro * seq
+    bound_ms, bound_by, flops = _train_bound(
+        cfg, n_params, params["embed"].numel(), tokens, batch * micro, seq,
+        2 * p_bytes + g_bytes + 2 * mv_bytes)
+    step_fn = build_train_step(
+        model, lr_schedule=functools.partial(cosine_schedule,
+                                             **TRAIN_SCHEDULE),
+        micro_batches=micro)
+    stream = SyntheticTokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch * micro,
+        seed=seed))
+    print(f"[train] {label}: {n_params:,} parameters, {p_bytes / 1e9:.3f} GB "
+          f"of parameters, state {(p_bytes + mv_bytes) / 1e9:.3f} GB "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+          f"moments {cfg.opt_dtype}, remat {cfg.remat}, remat_group "
+          f"{cfg.remat_group}); init {init_ms:.1f} ms")
+    recs = []
+    for i in range(steps):
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.batch_at(i).items()}
+        if micro > 1:
+            b = {k: v.reshape(micro, batch, seq) for k, v in b.items()}
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        state, m = step_fn(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        r = dict(ms=wall, event_ms=e0.elapsed_time(e1), loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), lr=float(m["lr"]))
+        recs.append(r)
+        print(f"[train] {label}: step {i}: {r['event_ms']:.1f} ms (CUDA "
+              f"events), {wall:.1f} ms (host clock, synchronised); loss "
+              f"{r['loss']:.4f}, gradient norm {r['grad_norm']:.4f}, lr "
+              f"{r['lr']:.3g}")
+        if not (np.isfinite([r["loss"], r["grad_norm"]]).all()
+                and r["loss"] > 0 and r["grad_norm"] > 0):
+            raise AssertionError(f"[train] {label}: step {i}: loss "
+                                 f"{r['loss']}, gradient norm "
+                                 f"{r['grad_norm']}")
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    steady = recs[1:] or recs
+    step_ms = float(np.mean([r["ms"] for r in steady]))
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+               batch=batch, micro_batches=micro, seq=seq, steps=recs,
+               params=n_params, param_bytes=p_bytes,
+               state_bytes=p_bytes + mv_bytes, init_ms=init_ms,
+               step_ms=step_ms, tok_s=tokens / step_ms * 1e3,
+               bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+               share_of_bound=bound_ms / step_ms, peak_bytes=peak,
+               held_bytes=held, card_bytes=card)
+    print(f"[train] {label}: {step_ms:.1f} ms per step after the first "
+          f"({tokens} tokens: {rec['tok_s']:.1f} tok/s); bound "
+          f"{bound_ms:.1f} ms, by {bound_by} ({flops:.3e} flops at bf16 "
+          f"dense): {rec['share_of_bound']:.3f} of the bound")
+    print(f"[train] {label}: peak memory {peak / 1e9:.3f} GB of the card's "
+          f"{card / 1e9:.3f} GB ({held / 1e9:.3f} held before)")
+    if keep_state:
+        return rec, state
+    del state, params, opt, m, model, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_checkpoint(state, tmp: Path, step: int):
+    """A full-size train state through ``CheckpointManager``: an async save
+    (the blocking device-to-host part and the background write timed
+    apart), then a restore onto the card that must be bit-equal."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.training.tree import leaves
+    shutil.rmtree(tmp, ignore_errors=True)
+    ckpt = CheckpointManager(str(tmp))
+    t0 = time.perf_counter()
+    ckpt.save(step, state)
+    blocking_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.wait()
+    write_s = time.perf_counter() - t0
+    nbytes = ckpt._path(step).stat().st_size
+    t0 = time.perf_counter()
+    back = ckpt.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b)
+                for a, b in zip(leaves(state), leaves(back)))
+    del back
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec = dict(bytes=nbytes, blocking_ms=blocking_ms, write_s=write_s,
+               restore_s=restore_s, bit_equal=equal)
+    print(f"[train] checkpoint: {nbytes / 1e9:.3f} GB; save blocks "
+          f"{blocking_ms:.1f} ms (device-to-host copy), writes in "
+          f"{write_s:.2f} s; restore onto the card {restore_s:.2f} s; "
+          f"bit-equal {equal}")
+    if not equal:
+        raise AssertionError("[train] checkpoint: the restored state differs")
+    return rec
+
+
+def _train_cut(seed, out: Path, batch=2, seq=512):
+    """qwen1.5-4b's f32 copy cut to 2 layers at full width, parameters drawn
+    with numpy from ``seed``: loss and gradients on the card, the gradient
+    check along a seeded direction, and the witness for ``lm_witness.py``
+    (per-leaf gradient norms and fixed slices, then the loss after one
+    clipped AdamW step at lr 1e-3 on fresh moments)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import numpy_params, params_from_reference
+    from repro_torch.training.optim import (adamw_init, adamw_update,
+                                            clip_by_global_norm, global_norm)
+    from repro_torch.training.tree import (leaves, leaves_with_path,
+                                           path_key, unflatten_like)
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2,
+                              dtype="float32")
+    model = Model(cfg, device=dev)
+    params = params_from_reference(numpy_params(cfg, seed), cfg, dev)
+    rng = np.random.default_rng(seed)
+    host = {k: rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    b = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    names = [path_key(p) for p, _ in leaves_with_path(params)]
+    ps = leaves(params)
+    req = [p.detach().requires_grad_() for p in ps]
+    loss, _ = model.loss(unflatten_like(params, req), b)
+    grads = list(torch.autograd.grad(loss, req))
+    loss = float(loss.detach())
+    del req
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        vs = [torch.randn(p.shape, generator=gen, device=dev) for p in ps]
+        dd = float(sum(torch.sum(g.double() * v.double())
+                       for g, v in zip(grads, vs)))
+        lp, lm = (float(model.loss(unflatten_like(
+            params, [p + sgn * TRAIN_FD_EPS * v for p, v in zip(ps, vs)]),
+            b)[0]) for sgn in (1.0, -1.0))
+    del vs
+    fd = (lp - lm) / (2 * TRAIN_FD_EPS)
+    rel = abs(fd - dd) / abs(dd)
+    gtree = unflatten_like(params, grads)
+    gnorm = float(global_norm(gtree))
+    leaf_norms = np.array([float(torch.linalg.vector_norm(g.double()))
+                           for g in grads])
+    idx = np.stack([np.linspace(0, g.numel() - 1, 256).astype(np.int64)
+                    for g in grads])
+    slices = np.stack([g.reshape(-1)[torch.as_tensor(i, device=dev)]
+                       .cpu().numpy() for g, i in zip(grads, idx)])
+    lr = 1e-3
+    with torch.no_grad():
+        clipped, _ = clip_by_global_norm(gtree, 1.0)
+        del gtree, grads
+        adamw_update(params, clipped, adamw_init(params),
+                     torch.tensor(lr, device=dev))
+        del clipped
+        post = float(model.loss(params, b)[0])
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "witness_train_qwen1.5-4b.npz"
+    np.savez(path, kind="train", seed=seed, arch="qwen1.5-4b",
+             n_layers=cfg.n_layers, tokens=host["tokens"],
+             labels=host["labels"], loss=loss, grad_norm=gnorm,
+             leaf_names=np.array(names), leaf_norms=leaf_norms,
+             slice_idx=idx, slices=slices, lr=lr, post_step_loss=post,
+             fd=fd, directional=dd)
+    del params, ps, model, b
+    torch.cuda.empty_cache()
+    rec = dict(loss=loss, grad_norm=gnorm, directional=dd, central_diff=fd,
+               fd_rel=rel, eps=TRAIN_FD_EPS, post_step_loss=post,
+               witness=str(path), wall_s=time.perf_counter() - t_start)
+    print(f"[train] gradient check, qwen1.5-4b f32 at 2 layers, full width, "
+          f"{batch} x {seq} tokens: <grad L, v> {dd:.6f}, central difference "
+          f"{fd:.6f} (eps {TRAIN_FD_EPS}): relative {rel:.3e} (limit "
+          f"{TRAIN_FD_REL}); loss {loss:.6f}, gradient norm {gnorm:.6f}, "
+          f"after one AdamW step {post:.6f}; witness {path}")
+    if not (np.isfinite([loss, gnorm, post]).all() and rel <= TRAIN_FD_REL):
+        raise AssertionError(f"[train] gradient check failed: relative "
+                             f"{rel:.3e}")
+    return rec
+
+
+def _train_smoke(arch, seed):
+    """``arch``'s smoke config in f32: loss and gradients on the card
+    against the same port code on the CPU (same parameters, numpy from
+    ``seed``, and batch), then one train step (AdamW at lr 1e-2) on each."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import numpy_params, params_from_reference
+    from repro_torch.training.optim import adamw_init, cosine_schedule
+    from repro_torch.training.train_step import build_train_step
+    from repro_torch.training.tree import (leaves, leaves_with_path,
+                                           path_key, unflatten_like)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    flat = list(numpy_params(cfg, seed))
+    batch = concrete_batch(cfg, "train", 2, 32, np.random.default_rng(seed),
+                           device="cpu")
+    runs = []                               # the CPU's run, then the card's
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        model = Model(cfg, device=dev)
+        params = params_from_reference(flat, cfg, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ps = leaves(params)
+        req = [p.detach().requires_grad_() for p in ps]
+        loss, _ = model.loss(unflatten_like(params, req), b)
+        grads = torch.autograd.grad(loss, req)
+        step = build_train_step(model, lr_schedule=functools.partial(
+            cosine_schedule, base_lr=TRAIN_STEP_LR, warmup=0, total=100))
+        st, m = step({"params": params, "opt": adamw_init(params)}, b)
+        runs.append(dict(
+            loss=float(loss.detach()),
+            grads={path_key(p): _host(g) for (p, _), g in
+                   zip(leaves_with_path(params), grads)},
+            metrics={k: float(v) for k, v in m.items()},
+            after={n: {path_key(p): _host(t) for p, t in
+                       leaves_with_path(tree)}
+                   for n, tree in (("params", st["params"]),
+                                   ("m", st["opt"]["m"]),
+                                   ("v", st["opt"]["v"]))}))
+    c, g = runs
+    err_loss = abs(g["loss"] - c["loss"])
+    err_g = max(float(np.max(np.abs(g["grads"][k] - c["grads"][k])))
+                / max(1.0, float(np.max(np.abs(c["grads"][k]))))
+                for k in c["grads"])
+    err_m = max(abs(g["metrics"][k] - c["metrics"][k])
+                / max(1.0, abs(c["metrics"][k]))
+                for k in ("loss", "aux", "grad_norm", "lr"))
+    err_mv = max(float(np.max(np.abs(g["after"][n][k] - c["after"][n][k])))
+                 / max(1.0, float(np.max(np.abs(c["after"][n][k]))))
+                 for n in ("m", "v") for k in c["after"][n])
+    scale = min(1.0, 1.0 / c["metrics"]["grad_norm"])     # the clip
+    d = {k: np.abs(g["after"]["params"][k] - c["after"]["params"][k])
+         for k in c["after"]["params"]}
+    far = sum(int((x > 1e-5).sum()) for x in d.values())
+    far_large_g = sum(int(((x > 1e-5)
+                           & (np.abs(c["grads"][k]) * scale >= 1e-6)).sum())
+                      for k, x in d.items())
+    err_p = max(float(x.max()) for x in d.values())
+    ok = (err_loss <= 1e-5 and err_g <= TRAIN_GRAD_TOL
+          and err_m <= TRAIN_GRAD_TOL and err_mv <= TRAIN_GRAD_TOL
+          and far_large_g == 0 and err_p <= 2 * TRAIN_STEP_LR)
+    msg = (f"loss {err_loss:.2e}, gradients {err_g:.2e} of max(1, |g|), step "
+           f"metrics {err_m:.2e}, moments {err_mv:.2e}; parameters after "
+           f"the step max {err_p:.2e}, {far} past 1e-5, {far_large_g} of "
+           f"them with |g| >= 1e-6")
+    print(f"[train] smoke {arch} float32: card vs CPU: {msg}")
+    if not ok:
+        raise AssertionError(f"[train] smoke {arch}: card and CPU disagree: "
+                             f"{msg}")
+    return dict(loss=err_loss, grads=err_g, metrics=err_m, moments=err_mv,
+                params_max=err_p, params_far=far, ok=ok)
+
+
+def _train_launcher(tmp: Path):
+    """The launcher's own cases on the card: the reference's "loss
+    decreases" (qwen1.5-4b smoke, 30 steps, batch 4, seq 64) and its
+    resume (mamba2-780m smoke, 8 steps against 4 + 4 through a
+    checkpoint, losses within rtol 1e-4)."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    _, losses = train.main(["--arch", "qwen1.5-4b", "--steps", "30",
+                            "--batch", "4", "--seq", "64",
+                            "--log-every", "10"])
+    if not losses[-1] < losses[0] - 0.1:
+        raise AssertionError(f"[train] launcher: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall by 0.1")
+    base = ["--arch", "mamba2-780m", "--batch", "2", "--seq", "32",
+            "--log-every", "1000"]
+    _, full = train.main(base + ["--steps", "8"])
+    d = str(tmp / "resume")
+    shutil.rmtree(d, ignore_errors=True)
+    train.main(base + ["--steps", "4", "--ckpt-dir", d, "--ckpt-every",
+                       "100"])
+    _, resumed = train.main(base + ["--steps", "8", "--ckpt-dir", d,
+                                    "--resume"])
+    shutil.rmtree(d, ignore_errors=True)
+    err = float(np.max(np.abs(np.array(full[4:]) - resumed)
+                       / np.abs(full[4:])))
+    print(f"[train] launcher on the card: qwen1.5-4b smoke loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over 30 steps; mamba2-780m "
+          f"resume after 4 of 8 steps: losses within relative {err:.2e} "
+          f"(limit 1e-4); {time.perf_counter() - t0:.1f} s")
+    if not np.allclose(full[4:], resumed, rtol=1e-4):
+        raise AssertionError(f"[train] launcher resume: {full[4:]} against "
+                             f"{resumed}")
+    return dict(loss_first=losses[0], loss_last=losses[-1], resume_rel=err)
+
+
+def phase_train(seed, out: Path, tmp: Path):
+    """The LM scaffold's training half on the card: qwen1.5-4b at full width
+    and depth (seq 4096, batch 2) and mamba2-780m at full size (seq 4096,
+    4 micro-batches of 2), 3 steps each; mamba2-780m's state through a
+    checkpoint; the full-width gradient check and witness; every smoke
+    config's loss, gradients and one step against the CPU; the launcher's
+    own cases."""
+    from repro_torch.configs.registry import get_config, list_archs
+    t_phase = time.perf_counter()
+    rec = {}
+    rec["qwen1.5-4b"] = _train_full("qwen1.5-4b", get_config("qwen1.5-4b"),
+                                    seed, 2, 4096, 3)
+    rec["mamba2-780m"], state = _train_full(
+        "mamba2-780m", get_config("mamba2-780m"), seed, 2, 4096, 3, micro=4,
+        keep_state=True)
+    rec["checkpoint"] = _train_checkpoint(state, tmp / "ckpt", 3)
+    del state
+    rec["cut"] = _train_cut(seed, out)
+    rec["smoke"] = {arch: _train_smoke(arch, seed) for arch in list_archs()}
+    rec["launcher"] = _train_launcher(tmp)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"[train] phase done in {rec['wall_s']:.1f} s")
+    return rec
+
+
+def train_device_time(rec, seed):
+    """One step of ``rec``'s model (its arch, batch, micro-batches and seq)
+    under torch.profiler, after the other device-time readings have freed
+    their models: the state is drawn again here, then freed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.models.lm import Model
+    from repro_torch.training.optim import cosine_schedule
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    label, micro, batch, seq = (rec["arch"], rec["micro_batches"],
+                                rec["batch"], rec["seq"])
+    cfg = get_config(label)
+    model = Model(cfg, device=dev)
+    box = {"state": init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))}
+    step_fn = build_train_step(model, lr_schedule=functools.partial(
+        cosine_schedule, **TRAIN_SCHEDULE), micro_batches=micro)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokenStream(
+        TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch * micro, seed=seed)
+    ).batch_at(0).items()}
+    if micro > 1:
+        b = {k: v.reshape(micro, batch, seq) for k, v in b.items()}
+
+    walls = []                  # the warm-up step's, then the profiled's
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["state"] = step_fn(box["state"], b)[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    dms, launches, kernels = _device_ms(step, calls=1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # the idle share of the profiled step alone: its own wall (the
+    # profiler's host overhead included) against its device time
+    p = dict(wall_ms=walls[-1], warmup_wall_ms=walls[0], device_ms=dms,
+             launches_per_call=launches, idle_share=1.0 - dms / walls[-1],
+             top_kernels=[dict(name=k, ms=v) for k, v in top])
+    rec["probe"] = p
+    box.clear()
+    torch.cuda.empty_cache()
+    print(f"[train] {label}: the profiled step {p['wall_ms']:.1f} ms of "
+          f"wall (the unprofiled step before it {walls[0]:.1f} ms; phase "
+          f"train's timed steps' mean {rec['step_ms']:.1f} ms), {dms:.1f} ms "
+          f"of device time, {launches:g} device launches: idle share "
+          f"{p['idle_share']:.3f}; the largest kernels' device ms: "
+          + "; ".join(f"{v:.1f} {k[:60]}" for k, v in top))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2550,8 +3019,12 @@ def main() -> int:
     phase_witness_segtree(out)
     bench = phase_bench(args.bench_n, args.bench_nq, out)
     torch.cuda.empty_cache()
+    trained = phase_train(args.seed, out, scratch / "train")
+    torch.cuda.empty_cache()
     lm = phase_lm(args.seed, out)
     phase_device_times()
+    for name in ("qwen1.5-4b", "mamba2-780m"):
+        train_device_time(trained[name], args.seed)
     for name, p in mesh["probes"].items():
         p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
         print(f"[mesh] {name}: one batch {p['wall_ms']:.3f} ms of wall, "
@@ -2715,6 +3188,7 @@ def main() -> int:
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
                    gather_rerank=rr, l2dist=l2, full=full, serve=served,
                    stream=stream, mesh=mesh, bench=bench, lm=lm,
+                   train=trained,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

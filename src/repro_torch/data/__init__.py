@@ -1,1 +1,2 @@
-"""Synthetic corpora, query ranges and ground truth."""
+"""Synthetic corpora, query ranges and ground truth; the LM training
+token stream (``data/tokens.py``)."""

@@ -1,16 +1,19 @@
-"""GQA attention (the reference's ``repro.models.attention``, serving half):
-double-chunked online-softmax attention for prefill and the encoder, a
-direct decode path over the cache, cross-attention.  Plain torch ops, one
-code path for the CPU and the card: scores and accumulators are f32 (the
-reference's ``preferred_element_type``), taken from inputs cast to f32, so
-a product of two bf16 values is exact and only the order of the sums can
-differ."""
+"""GQA attention (the reference's ``repro.models.attention``):
+double-chunked online-softmax attention for training, prefill and the
+encoder, a direct decode path over the cache, cross-attention.  Plain torch
+ops, one code path for the CPU and the card: scores and accumulators are
+f32 (the reference's ``preferred_element_type``), taken from inputs cast to
+f32, so a product of two bf16 values is exact and only the order of the
+sums can differ.  Under autograd each q chunk's pass is checkpointed, so
+backward keeps one chunk's f32 score tiles at a time (XLA's
+rematerialisation does the same for the reference)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import apply_rope, norm
@@ -40,9 +43,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     padding) happens on the f32 score tile.  Query head h attends with kv
     head h // (H / Kh) (the reference's ``(Kh, G)`` grouping).
 
+    A causal pass stops at the diagonal: a kv chunk past a q chunk's last
+    row is all masked, and folding it in would leave the result as it is
+    bit for bit (its probabilities are exactly 0 and its correction 1).
+    With gradients on, each q chunk's pass is checkpointed: its tiles are
+    recomputed in backward instead of kept (the same numbers).
     ``unroll`` and ``block_skip`` are the reference's dry-run analysis
-    options; they are accepted and ignored (a skipped block is one whose
-    scores are all masked, which leaves the result as it is)."""
+    options; they are accepted and ignored."""
     del unroll, block_skip
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
@@ -62,14 +69,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qp = qp.reshape(B, nq, qc, Kh, G, hd).float()
     kp = kp.reshape(B, nk, kc, Kh, hd).float()
     vp = vp.reshape(B, nk, kc, Kh, hd)
-    outs = []
-    for iq in range(nq):
-        qi = qp[:, iq]
+
+    def q_block(qi, kp, vp, iq: int):
         iq_glob = q_offset + iq * qc + torch.arange(qc, device=dev)
         m = torch.full((B, Kh, G, qc), NEG, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Kh, G, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Kh, G, qc, hd), dtype=torch.float32, device=dev)
         for jk in range(nk):
+            if causal and isinstance(q_offset, int) and \
+                    jk * kc > q_offset + iq * qc + qc - 1:
+                break
             kj, vj = kp[:, jk], vp[:, jk]
             jk_glob = jk * kc + torch.arange(kc, device=dev)
             s = torch.einsum("bqkgh,bjkh->bkgqj", qi, kj) * scale
@@ -88,7 +97,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]        # (B,Kh,G,qc,hd)
-        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))    # (B,qc,Kh,G,hd)
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)          # (B,qc,Kh,G,hd)
+
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    outs = [checkpoint(q_block, qp[:, iq], kp, vp, iq, use_reentrant=False,
+                       preserve_rng_state=False)
+            if grad else q_block(qp[:, iq], kp, vp, iq) for iq in range(nq)]
     out = torch.stack(outs, dim=1).reshape(B, nq * qc, H, hd)
     return out[:, :Sq0]
 

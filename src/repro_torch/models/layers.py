@@ -1,10 +1,10 @@
-"""Stateless layer ops: norms, RoPE, MLPs, embedding and the LM head (the
-reference's ``repro.models.layers``, serving half).  Norms compute in f32
-and return the input's dtype; the head accumulates in f32 (the reference's
-``preferred_element_type``)."""
+"""Stateless layer ops: norms, RoPE, MLPs, embedding, the LM head and the
+cross entropy (the reference's ``repro.models.layers``).  Norms compute in
+f32 and return the input's dtype; the head accumulates in f32 (the
+reference's ``preferred_element_type``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,3 +69,22 @@ def lm_logits(x: torch.Tensor, params: Dict, tie: bool) -> torch.Tensor:
     summed in f32."""
     head = params["embed"].T if tie else params["lm_head"]
     return x.float() @ head.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL over the (possibly padded) vocab dim, in f32.  Padded
+    columns are set to -1e30 (not -inf, so their gradient is exactly 0) and
+    never win.  The gold logit is gathered, which is the reference's
+    one-hot sum bit for bit (every other term of that sum is 0)."""
+    v_pad = logits.shape[-1]
+    logits = logits.float()
+    if v_pad != vocab_real:
+        pad_mask = torch.arange(v_pad, device=logits.device) >= vocab_real
+        logits = torch.where(pad_mask, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

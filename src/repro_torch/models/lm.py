@@ -1,29 +1,60 @@
 """Unified model: dense / MoE / SSM / hybrid / enc-dec / VLM families (the
-reference's ``repro.models.lm``, serving half).
+reference's ``repro.models.lm``).
 
 One ``Model`` per ``ArchConfig``.  Parameters are the reference's tree of
 group-stacked tensors (``params["blocks"][...]`` has a leading ``(G, ...)``
 axis; a group is 1 layer for uniform stacks, ``attn_every`` layers for
 hybrids, ``cross_attn_every`` for VLMs), and the layer stack is a Python
-loop over the groups where the reference scans.  ``prefill`` builds the
+loop over the groups where the reference scans.  ``loss`` is the training
+forward, differentiated by ``torch.autograd``; ``prefill`` builds the
 decode cache in the reference's stacked layout, leaf for leaf; ``decode``
 writes it in place (the reference donates it) and returns it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import embed_tokens, mlp, norm
+from repro_torch.models.layers import cross_entropy, embed_tokens, mlp, norm
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (DTYPES, ModelDims, ShardPlan,
                                        init_params, resolve_dims)
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the 2-D weight products
+    (``mm`` / ``addmm``; a batched ``bmm`` is recomputed with the rest)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` checkpointed per the config's remat mode: ``full`` recomputes
+    everything in backward, ``dots`` saves the weight products and
+    recomputes the rest, ``none`` keeps everything.  The recompute gives
+    the same numbers, so the gradients are the same bit for bit."""
+    if mode not in ("full", "dots"):
+        return fn
+    kw = {} if mode == "full" else dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_dots))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
 
 
 def _mlp_block(x, p, cfg):
@@ -41,10 +72,13 @@ class Model(nn.Module):
                  mesh=None, opts: Optional[Dict] = None, device=None):
         """``device``: where the parameters, inputs and caches live
         (``None``: the card, raising without one).  opts: ``q_chunk`` /
-        ``kv_chunk`` (flash-attention tile sizes) and ``ssm_chunk`` (SSD
-        chunk length); the reference's dry-run options (``unroll``,
-        ``block_skip``) are accepted and ignored.  ``mesh`` of more than one
-        device is the training slice's (``moe_ffn`` raises)."""
+        ``kv_chunk`` (flash-attention tile sizes), ``ssm_chunk`` (SSD
+        chunk length), ``ce_chunk`` (the loss's sequence slice) and
+        ``remat_group`` (layers per checkpointed super-group, default the
+        config's); the reference's dry-run options (``unroll``,
+        ``block_skip``) are accepted and ignored.  ``mesh``: a
+        ``parallel.sharding.ShardMesh`` over which ``moe_ffn`` splits its
+        tokens and experts."""
         super().__init__()
         self.cfg = cfg
         self.plan = plan
@@ -77,6 +111,67 @@ class Model(nn.Module):
         in f32."""
         return x.float() @ self._head_matrix(params).to(x.dtype).float()
 
+    # ------------------------------------------------------------- stacks
+    def _group_train(self, x, pl, positions, memory_kv=None):
+        """One group, full sequence. Returns (x, aux)."""
+        cfg, dm = self.cfg, self.dm
+        ao, so = self._attn_opts, self._ssm_opts
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        fam = cfg.family
+        if fam in ("dense", "moe"):
+            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
+            if fam == "moe":
+                f, a = moe_ffn(x, pl["moe"], cfg, dm, self.mesh)
+                x, aux = x + f, aux + a
+            else:
+                x = _mlp_block(x, pl["mlp"], cfg)
+        elif fam == "ssm":
+            x = x + ssm_mod.mamba_train(x, pl["ssm"], cfg, dm, opts=so)
+        elif fam == "hybrid":
+            for j in range(dm.group_layers):
+                if j == 0:
+                    x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
+                else:
+                    x = x + ssm_mod.mamba_train(x, pl[f"ssm{j}"], cfg, dm, opts=so)
+                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
+                    f, a = moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)
+                    x, aux = x + f, aux + a
+                else:
+                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
+        elif fam in ("encdec", "vlm"):
+            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
+            ckv = attn.cross_kv(memory_kv, pl["cross"], cfg, dm)
+            x = x + attn.cross_attn(x, ckv, pl["cross"], cfg, dm, opts=ao)
+            x = _mlp_block(x, pl["mlp"], cfg)
+            for j in range(1, dm.group_layers if fam == "vlm" else 1):
+                x = x + attn.self_attn_train(x, pl[f"attn{j}"], cfg, dm, positions, opts=ao)
+                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
+        return x, aux
+
+    def _stack_train(self, params, x, positions, memory=None):
+        """The groups in order, each super-group of ``remat_group`` groups
+        checkpointed as one (the reference scans over super-groups: the
+        saved carry shrinks by r at the price of r groups recomputed
+        together); r falls back to 1 when it does not divide the groups."""
+        G = self.dm.groups
+        r = max(1, int(self.opts.get("remat_group", self.cfg.remat_group)))
+        if G % r:
+            r = 1
+        blocks = params["blocks"]
+
+        def body(x, aux, g0: int):
+            for g in range(g0, g0 + r):
+                x, a = self._group_train(x, _group(blocks, g), positions,
+                                         memory)
+                aux = aux + a
+            return x, aux
+
+        body = _remat(body, self.cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g0 in range(0, G, r):
+            x, aux = body(x, aux, g0)
+        return x, aux
+
     # ------------------------------------------------------------- encoder
     def _encode(self, params, frames):
         cfg, dm = self.cfg, self.dm
@@ -85,11 +180,16 @@ class Model(nn.Module):
             x = x @ params["frontend_proj"]
         x = x.to(DTYPES[cfg.dtype])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for g in range(dm.enc_layers):
+
+        def enc_group(h, g):
             pl = _group(params["enc_blocks"], g)
-            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions,
+            h = h + attn.self_attn_train(h, pl["attn"], cfg, dm, positions,
                                          causal=False, opts=self._attn_opts)
-            x = _mlp_block(x, pl["mlp"], cfg)
+            return _mlp_block(h, pl["mlp"], cfg)
+
+        body = _remat(enc_group, cfg.remat)
+        for g in range(dm.enc_layers):
+            x = body(x, g)
         return norm(x, params, cfg.norm, "enc_final_norm")
 
     def _memory(self, params, batch):
@@ -103,6 +203,55 @@ class Model(nn.Module):
                 x = x @ params["frontend_proj"]
             return x.to(DTYPES[cfg.dtype])
         return None
+
+    # ------------------------------------------------------------- train
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """(ce + 0.01·aux, {"loss": ce, "aux": aux}) of a batch of
+        ``tokens`` and ``labels`` (B, S); labels < 0 are not scored."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        memory = self._memory(params, batch)
+        x = self._embed(params, tokens)
+        x, aux = self._stack_train(params, x, positions, memory)
+        x = norm(x, params, cfg.norm, "final_norm")
+        ce = self._chunked_ce(params, x, labels)
+        total = ce + 0.01 * aux
+        return total, {"loss": ce, "aux": aux}
+
+    def _chunked_ce(self, params, x, labels):
+        """Sequence-chunked CE so (tokens × vocab) logits are never live at
+        once: a loop over slices of ``ce_chunk`` positions (the last padded
+        with label -1), each checkpointed so its f32 logits are recomputed
+        in backward."""
+        cfg = self.cfg
+        s = x.shape[1]
+        head = self._head_matrix(params)
+        c = min(int(self.opts.get("ce_chunk", 1024)), s)
+        pad = (-s) % c
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        nch = x.shape[1] // c
+
+        def chunk_loss(xc, lc, head):
+            logits = xc.float() @ head.to(xc.dtype).float()
+            valid = (lc >= 0).float()
+            nll = cross_entropy(logits, torch.clamp_min(lc, 0), cfg.vocab_size,
+                                mask=valid) * torch.sum(valid)
+            return nll, torch.sum(valid)
+
+        grad = torch.is_grad_enabled()
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(nch):
+            args = (x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c], head)
+            nll, nv = (checkpoint(chunk_loss, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+                       if grad else chunk_loss(*args))
+            tot = tot + nll
+            cnt = cnt + nv
+        return tot / torch.clamp_min(cnt, 1.0)
 
     # ------------------------------------------------------------- serve
     def init_cache(self, batch_size: int, max_len: int) -> Dict:

@@ -305,7 +305,7 @@ def params_from_reference(flat, cfg: ArchConfig, device,
     """Carry parameters given as host arrays under the reference's
     '/'-joined paths (a mapping, or ``(path, array)`` pairs such as
     :func:`numpy_params` yields) into the port's tree on ``device``, each
-    cast to its spec's dtype.  Every path of the spec must be given once,
+    copied and cast to its spec's dtype.  Every path of the spec must be given once,
     with the spec's shape."""
     specs = build_param_specs(cfg, plan)
     items = flat.items() if isinstance(flat, Mapping) else flat
@@ -314,9 +314,9 @@ def params_from_reference(flat, cfg: ArchConfig, device,
         spec = specs.get(path)
         if spec is None or path in out:
             raise KeyError(f"params_from_reference: unexpected path {path!r}")
-        a = np.asarray(a, np.float32)
-        if not a.flags.writeable:       # the reference's arrays are read-only
-            a = a.copy()
+        # a copy: a train step updates the parameters in place, and the
+        # reference's arrays are read-only
+        a = np.array(a, np.float32)
         if a.shape != spec.shape:
             raise ValueError(f"params_from_reference: {path} has shape "
                              f"{a.shape}, the spec {spec.shape}")

@@ -1,7 +1,7 @@
 """Mamba2 (SSD — state-space duality) block, chunked dual form (the
-reference's ``repro.models.ssm``, serving half).
+reference's ``repro.models.ssm``).
 
-Prefill uses the block-decomposed SSD algorithm (intra-chunk quadratic term
+Training and prefill use the block-decomposed SSD algorithm (intra-chunk quadratic term
 + inter-chunk state recurrence, a loop over chunks); decode is a
 single-step state update.  Layout follows the minimal-SSD reference:
 ``x:(B,S,H,P)  dt:(B,S,H)  A:(H)<0  Bm,Cm:(B,S,N)`` (n_groups = 1).  The

@@ -1,1 +1,2 @@
-"""Shard placement for the multi-device paths (``parallel/sharding.py``)."""
+"""Shard placement for the multi-device paths (``parallel/sharding.py``)
+and the GPipe schedule (``parallel/pipeline.py``)."""

@@ -1,12 +1,14 @@
-"""Shard placement: the RFANN path's counterpart of the reference's
-``make_mesh_compat`` and ``shard_map_compat``.
+"""Shard placement: the counterpart of the reference's ``make_mesh_compat``
+and ``shard_map_compat``.
 
 The reference's multi-device layer is single-controller: one process
-drives a one-axis ``jax.Mesh`` through ``shard_map``, and the cross-shard
-step is an in-body ``all_gather``.  Here one process holds a ``ShardMesh``,
-one ``torch.device`` per shard; ``shard_map`` runs a per-shard body on its
-shard's device, and ``all_gather`` stacks the shards' results on the
-mesh's first device.  Shards are placed round-robin over the devices, so S
+drives a ``jax.Mesh`` through ``shard_map``, and the cross-shard steps are
+in-body collectives.  Here one process holds a ``ShardMesh``, one
+``torch.device`` per shard; ``shard_map`` runs a per-shard body on its
+shard's device, ``all_gather`` stacks the shards' results on the mesh's
+first device, and ``all_to_all`` exchanges per-owner slices (the MoE's
+expert-parallel dispatch).  The copies are ``Tensor.to``, so autograd
+runs back through them.  Shards are placed round-robin over the devices, so S
 shards may share one card (they then run back to back on its current
 stream) or spread over several."""
 from __future__ import annotations
@@ -87,3 +89,19 @@ def all_gather(parts: Sequence[torch.Tensor],
     first device (a copy only for shards on another device)."""
     dev = mesh.devices[0]
     return torch.stack([p.to(dev, non_blocking=True) for p in parts])
+
+
+def all_to_all(parts: Sequence[torch.Tensor], mesh: ShardMesh,
+               split_dim: int, concat_dim: int) -> List[torch.Tensor]:
+    """The tiled ``lax.all_to_all``: shard s splits ``parts[s]`` into S
+    equal slices along ``split_dim`` and sends slice r to shard r, which
+    concatenates what it receives along ``concat_dim`` in source order.
+    Returns the S received tensors, each on its shard's device."""
+    S = mesh.size
+    pieces = [torch.chunk(p, S, dim=split_dim) for p in parts]
+    if any(len(ps) != S or ps[0].shape != ps[-1].shape for ps in pieces):
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{[tuple(p.shape) for p in parts]} does not split "
+                         f"into {S} equal slices")
+    return [torch.cat([pieces[s][r].to(mesh.devices[r]) for s in range(S)],
+                      dim=concat_dim) for r in range(S)]

@@ -1,1 +1,2 @@
-"""Runtime helpers of the serve launcher."""
+"""Runtime helpers of the launchers: preemption, straggler detection,
+heartbeats and gradient compression."""

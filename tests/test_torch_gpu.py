@@ -3,7 +3,7 @@
 fused beam against the lockstep loop), the quantized corpus against the
 CPU's bit for bit, and the slices end to end (the benchmark's baselines,
 the 8-shard mesh and sharded build on one card, and one LM of each family
-against the CPU included).  Marked
+against the CPU included, serving and training).  Marked
 ``gpu``; every test skips (inside the ``cuda`` fixture) where no card is
 present.  Run on the card with ``pytest -m gpu tests/test_torch_*.py``."""
 import copy
@@ -526,6 +526,25 @@ def test_lm_family_on_card_matches_cpu(cuda, arch):
         for k in cc:
             assert np.abs(cg[k] - cc[k]).max() <= 1e-4 * max(
                 1.0, float(np.abs(cc[k]).max())), k
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b", "mamba2-780m",
+                                  "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_train_family_on_card_matches_cpu(cuda, arch):
+    """One arch per family through the smoke script's own card-vs-CPU
+    comparison (``chip_smoke._train_smoke``, its tolerances stated there):
+    smoke config in f32, parameters from numpy, loss and every gradient
+    leaf, then one train step (AdamW) on each."""
+    import importlib
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    rec = importlib.import_module("chip_smoke")._train_smoke(arch, 0)
+    assert rec["ok"], rec
 
 
 @pytest.mark.parametrize("bucket,k", [(64, 10), (8192, 10), (8192, 128),

@@ -64,7 +64,10 @@ def test_port_modules_all_present():
             "configs/llama_3_2_vision_11b.py",
             "configs/llama4_maverick_400b_a17b.py", "models/params.py",
             "models/layers.py", "models/attention.py", "models/ssm.py",
-            "models/moe.py", "models/lm.py", "launch/specs.py"]
+            "models/moe.py", "models/lm.py", "launch/specs.py",
+            "data/tokens.py", "training/optim.py", "training/train_step.py",
+            "training/tree.py", "checkpoint/checkpoint.py",
+            "parallel/pipeline.py", "launch/train.py"]
     assert [p for p in want if not (PORT / p).exists()] == []
 
 
@@ -139,6 +142,16 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--mode", "lm", "--new-tokens", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
+    from repro_torch.launch import train
+    from repro_torch.training.train_step import init_train_state
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(Model(cfg), torch.Generator())
+    st = init_train_state(Model(cfg, device="cpu"), torch.Generator())
+    assert st["opt"]["step"].device.type == "cpu"
+    assert train.main(["--device", "cpu", "--steps", "1", "--batch", "2",
+                       "--seq", "8", "--arch", "qwen1.5-4b"])[1]
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -215,13 +215,27 @@ def test_route_ties_keep_the_lower_expert():
 
 
 def test_moe_ffn_refuses_a_mesh():
+    """``moe_ffn`` refuses no mesh: on a 2-shard CPU mesh it runs, and with
+    no token dropped its output equals the local path's
+    (``tests/test_torch_parallel_train.py`` holds the mesh paths in full)."""
+    import dataclasses
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.params import ShardPlan, resolve_dims
     from repro_torch.parallel.sharding import make_mesh
-    cfg = get_smoke_config("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TM.moe_ffn(torch.zeros(1, 2, cfg.d_model), {}, cfg,
-                   resolve_dims(cfg, ShardPlan()), make_mesh(2, ["cpu"]))
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                              dtype="float32")
+    dm = resolve_dims(cfg, ShardPlan())
+    g = torch.Generator().manual_seed(0)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn(d, e, generator=g),
+         "w_in": torch.randn(e, d, f, generator=g) * .1,
+         "w_gate": torch.randn(e, d, f, generator=g) * .1,
+         "w_out": torch.randn(e, f, d, generator=g) * .1,
+         "norm": torch.ones(d)}
+    x = torch.randn(2, 4, d, generator=g)
+    y, aux = TM.moe_ffn(x, p, cfg, dm, make_mesh(2, ["cpu"]))
+    assert float((y - TM.moe_ffn(x, p, cfg, dm)[0]).abs().max()) < 1e-5
+    assert bool(torch.isfinite(aux))
 
 
 # ---------------------------------------------------------------- params
