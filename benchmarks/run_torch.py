@@ -39,12 +39,11 @@ from benchmarks.common_torch import (build_methods, build_seconds, dataset,
 from repro_torch.core.rfann import RNSGIndex
 from repro_torch.data.ann import mixed_workload, selectivity_ranges
 from repro_torch.device import resolve_device
+# H100 SXM peaks for the kernel bounds: HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores
+from repro_torch.launch.hlo_analysis import F32_FLOPS, HBM_BYTES_PER_S
 from repro_torch.parallel.sharding import make_mesh
 
-#: H100 SXM peaks for the kernel bounds: HBM3 bytes/s, f32 FLOP/s outside
-#: the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 
 def bench_qps_recall(n, d, nq, quick, device, methods=None):

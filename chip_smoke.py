@@ -91,7 +91,11 @@ Phases, each printing its lines:
              never a gather kernel or the lockstep loop); then the launcher
              with --build-shards 8 at 100,000 × 128, 1,024 requests: its
              graph equal to ``build_rnsg``'s, its recall within 0.01 of
-             ``RNSGIndex.search`` under the served routing;
+             ``RNSGIndex.search`` under the served routing; and the mesh
+             index's ``lower_for_dryrun`` (f32, int8): the per-shard graph
+             body on fakes derived from the index's rows per shard,
+             dimension, degree and precision, whose shapes and dtypes
+             must be the index's shard-0 tensors';
 9. witness — an n = 100,000 build and graph search on the card, written to
              ``chiprun_out/witness_n100000.npz``, and the bench's segment
              tree built and searched at n = 8,192 (its upper levels through
@@ -135,7 +139,22 @@ Phases, each printing its lines:
              launcher's own cases (``launch.train.main``: the loss falls
              over 30 steps; a resume through a checkpoint replays the
              losses);
-12. lm     — the LM scaffold's serving path (no hand kernel: plain torch
+12. shard  — qwen1.5-4b's ZeRO-3 (FSDP-strategy) train step
+             (``parallel.fsdp``) at full width and depth on a global batch
+             of 8 × 1024 tokens from the launcher's token stream (the loss
+             in slices of 256 positions), at S = 2 (data 2) and S = 8
+             (data 4 × model 2) shards, all on the first card, each on a
+             state drawn again, one warm-up step and one timed: step ms,
+             peak memory and the counted per-device all-gather and
+             reduce-scatter bytes beside their bounds; loss, gradient norm
+             and post-step parameter slices within twice the unsharded
+             step's own distance to its ``micro_batches=S`` step (a rate of
+             1e-4); qwen1.5-4b's f32 copy cut to 2 layers, the S = 8 step
+             against the unsharded step (loss 1e-5, gradients 1e-4 of
+             max(1, |g|)); the dry-run's share of the S = 8 step on fakes
+             (``launch.dryrun --mesh``, run on the host meanwhile), whose
+             collective bytes and parameter bytes must equal the card's;
+13. lm     — the LM scaffold's serving path (no hand kernel: plain torch
              ops and cuBLAS products): llama3-8b at full width and depth
              (bf16, parameters drawn on the card from ``--seed``) and
              mamba2-780m at full size, each a prefill of 64 x 32 tokens and
@@ -151,7 +170,7 @@ Phases, each printing its lines:
              same port code on the CPU (f32 and bf16, prefill and 4 decode
              steps, logits and caches); the launcher's ``--mode lm`` in
              process;
-13. device times — range_scan's, gather_rerank's and l2dist's timed parity
+14. device times — range_scan's, gather_rerank's and l2dist's timed parity
              shapes again, one batch of the mesh phase's mesh and
              local async paths, one decode step of the lm phase's
              llama3-8b and mamba2-780m, then (their models freed) one
@@ -160,9 +179,9 @@ Phases, each printing its lines:
              wall), under torch.profiler: device time and device
              launches per call (last, because a profiler session slows the
              host-side torch ops of every later phase);
-14. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
+15. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
     path under ``mesh_launches``);
-15. the last line ``{"ok": true, "device": {...}}``.
+16. the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ``ok``
 line.  Details (all buckets, per-level recall) go to
@@ -174,6 +193,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -183,9 +203,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 dense, tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's rates (HBM3 bytes/s, f32 outside and bf16 dense on the
+# tensor cores, FLOP/s), kept once in the port
+from repro_torch.launch.hlo_analysis import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                             HBM_BYTES_PER_S)
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
@@ -2140,6 +2162,36 @@ def phase_mesh(held, tmp: Path, ops, n_serve=100_000, nreq=1024, batch=64):
         _device_probe(probes[name], fn, f"mesh phase {name}, one batch "
                       f"of {batch}")
 
+    # the mesh path's per-shard graph body as the dry-run counts it: one
+    # device's share on fakes that it derives from the index's rows per
+    # shard, dimension, degree and precision; each must have the shape and
+    # dtype of the index's own shard-0 tensor
+    lowered = {}
+    for prec in ("f32", "int8"):
+        r = meshd.lower_for_dryrun(batch, meshd.dim, k=10, ef=64,
+                                   precision=prec)
+        real = [meshd.vecs[0], meshd.nbrs[0], meshd.rmq[0],
+                meshd.dist_c[0], meshd.order[0]]
+        if prec != "f32":
+            slot = meshd.mesh_substrate._quant_for(prec)
+            real += [t for t in (slot["data"][0], slot["scale"][0])
+                     if t is not None]
+        fakes = [(tuple(t.shape), str(t.dtype)) for t in r.pop("operands")]
+        reals = [(tuple(t.shape), str(t.dtype)) for t in real]
+        want = sum(t.numel() * t.element_size() for t in real)
+        lowered[prec] = dict(r, real_operand_bytes=want)
+        print(f"[mesh] lower_for_dryrun {prec}: shard 0's operands derived "
+              f"from (rows {meshd.per}, d {meshd.dim}, m {meshd.degree}): "
+              f"{fakes}, {r['operand_bytes']} B; the index's tensors "
+              f"{reals}, {want} B; queries {r['query_bytes']} B, the "
+              f"merge's all-gathers {r['gather_bytes']} B per device, "
+              f"{r['flops']:.4e} operations (one hop), counted in "
+              f"{r['seconds']:.2f} s")
+        if fakes != reals or r["operand_bytes"] != want:
+            raise AssertionError(f"mesh: lower_for_dryrun's operands "
+                                 f"{fakes} ({r['operand_bytes']} B) are not "
+                                 f"the index's {reals} ({want} B)")
+
     # (3) the launcher's sharded build: its graph equal to build_rnsg's,
     # its recall within 0.01 of RNSGIndex.search under the served routing
     tmp.mkdir(parents=True, exist_ok=True)
@@ -2208,6 +2260,7 @@ def phase_mesh(held, tmp: Path, ops, n_serve=100_000, nreq=1024, batch=64):
     return dict(n=n, shards=S, per=local.per, sharded_build_s=sharded_s,
                 local_build_s=local_build_s, mesh_build_s=mesh_build_s,
                 configs=summary, equal=equal, probes=probes,
+                lowered=lowered,
                 launcher=launcher, batch=batch, nq=nq, wall_s=wall,
                 own=own["summary"],
                 launches={**{c: {k: v for k, v in launches[c].items() if v}
@@ -2913,6 +2966,360 @@ def phase_train(seed, out: Path, tmp: Path):
     return rec
 
 
+#: the shard phase: qwen1.5-4b's ZeRO-3 (FSDP-strategy) step at S shards,
+#: every shard on the first card.  A global batch of 8 × 1024 tokens (the
+#: train phase's 8,192 tokens; the batch divides by 8); the loss in slices
+#: of 256 positions, so the f32 logits of one slice, (8, 256, vocab), are
+#: the train phase's (2, 1024, vocab) in size.
+SHARD_MESHES = {2: {"data": 2}, 8: {"data": 4, "model": 2}}
+SHARD_BATCH, SHARD_SEQ = 8, 1024
+SHARD_OPTS = {"ce_chunk": 256}
+#: a constant rate, so that the compared step moves every parameter (the
+#: launcher's schedule starts at 0)
+SHARD_LR = 1e-4
+#: evenly spaced elements of each parameter leaf compared after a step
+SHARD_SLICE = 4096
+#: a few f32 units of relative distance: the floor of a limit that is twice
+#: the micro-batch step's distance to the unsharded step, and the limit of
+#: the sharded step's distance to its micro-batch step
+SHARD_FLOOR = 2.0 ** -20
+
+
+def _slices(tree):
+    """Each leaf's SHARD_SLICE evenly spaced elements, f32 on the host."""
+    import torch
+    from repro_torch.training.tree import leaves_with_path, path_key
+    out = {}
+    for p, t in leaves_with_path(tree):
+        idx = (torch.arange(SHARD_SLICE, device=t.device)
+               * (t.numel() - 1)) // (SHARD_SLICE - 1)
+        out[path_key(p)] = t.reshape(-1)[idx].float().cpu().numpy()
+    return out
+
+
+def _shard_step(label, make_state, step, batch, params_of, reps=2):
+    """``reps`` steps, each on a state drawn again by ``make_state`` (a step
+    updates its state in place); the last one's metrics, post-step
+    parameter slices, CUDA-event and host ms, peak memory and collective
+    counts."""
+    import torch
+    from repro_torch.parallel.sharding import CollectiveCounter
+    from repro_torch.training.tree import leaves
+    for rep in range(reps):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_state()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with CollectiveCounter() as cc:
+            t0 = time.perf_counter()
+            e0.record()
+            state, m = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        rec = dict(ms=wall, event_ms=e0.elapsed_time(e1), peak_bytes=peak,
+                   loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   collectives=cc.as_dict(), calls=dict(cc.calls))
+        kind = "timed" if rep == reps - 1 else "warm-up"
+        print(f"[shard] {label}: step {rep} ({kind}): "
+              f"{rec['event_ms']:.1f} ms (CUDA events), {wall:.1f} ms (host "
+              f"clock); loss {rec['loss']:.6f}, gradient norm "
+              f"{rec['grad_norm']:.6f}; peak {peak / 1e9:.3f} GB")
+        if not np.isfinite([rec["loss"], rec["grad_norm"]]).all():
+            raise AssertionError(f"[shard] {label}: loss {rec['loss']}, "
+                                 f"gradient norm {rec['grad_norm']}")
+        if rep == reps - 1:
+            rec["slices"] = _slices(params_of(state))
+            rec["shard0_param_bytes"] = (
+                sum(t.numel() * t.element_size()
+                    for t in leaves(state[0]["params"]))
+                if isinstance(state, list) else None)
+        del state, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rel_to(a, b, pre) -> float:
+    """||a - b|| over the slices, relative to b's move from ``pre``."""
+    num = sum(float(np.sum((a[k].astype(np.float64) - b[k]) ** 2)) for k in b)
+    den = sum(float(np.sum((b[k].astype(np.float64) - pre[k]) ** 2))
+              for k in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _shard_cut(seed, dev):
+    """qwen1.5-4b's f32 copy cut to 2 layers at full width (numpy
+    parameters from ``seed``): the sharded step at S = 8 against the
+    unsharded step, loss within 1e-5 and each gradient leaf and each
+    post-step moment leaf within 1e-4 · max(1, max |g|) (the train phase's
+    card-vs-CPU rule); and its post-step parameters and moments equal to
+    the unsharded micro_batches=8 step's, block by block, within
+    SHARD_FLOOR · max(1, max |x|) (each shard runs that step's shapes and
+    sums in its order; a wrong learning rate or a skipped leaf on an owner
+    moves a block by far more)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import numpy_params, params_from_reference
+    from repro_torch.parallel.fsdp import (StateLayout,
+                                           build_sharded_train_step,
+                                           shard_state)
+    from repro_torch.parallel.sharding import (FSDP_RULES, make_act_sharder,
+                                               make_mesh)
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.train_step import build_train_step
+    from repro_torch.training.tree import leaves_with_path, path_key
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2,
+                              dtype="float32")
+    mesh = make_mesh(SHARD_MESHES[8], [dev])
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             (SHARD_BATCH, 256)),
+                                dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    sched = lambda step: torch.tensor(SHARD_LR, device=dev)  # noqa: E731
+
+    drawn = dict(numpy_params(cfg, seed))   # drawn once, copied per step
+
+    def fresh():
+        p = params_from_reference(drawn, cfg, dev)
+        return {"params": p, "opt": adamw_init(p, cfg.opt_dtype)}
+
+    grads0 = {}
+
+    def keep(g):
+        grads0.update({path_key(p): t.float() for p, t in
+                       leaves_with_path(g)})
+        return g
+    model = Model(cfg, device=dev, opts=SHARD_OPTS)
+    s0, m0 = build_train_step(model, lr_schedule=sched,
+                              grad_transform=keep)(fresh(), batch)
+    moments0 = {k: s0["opt"][k] for k in ("m", "v")}
+    del s0
+    mb, _ = build_train_step(model, lr_schedule=sched, micro_batches=8)(
+        fresh(), {k: v.reshape(8, SHARD_BATCH // 8, -1)
+                  for k, v in batch.items()})
+    smodel = Model(cfg, device=dev, opts=SHARD_OPTS,
+                   act_shard=make_act_sharder(mesh, FSDP_RULES))
+    lay = StateLayout(smodel, mesh)
+    shards = shard_state(fresh(), smodel, mesh)
+    shards, m1 = build_sharded_train_step(smodel, mesh, lr_schedule=sched,
+                                          keep_grads=True)(shards, batch)
+    g1 = {path_key(p): t for p, t in leaves_with_path(
+        lay.unshard_tree(m1.pop("grads")))}
+    dl = abs(float(m1["loss"]) - float(m0["loss"]))
+    worst = max(float((g1[k] - g).abs().max()) / max(1.0, float(
+        g.abs().max())) for k, g in grads0.items())
+    gmax = {k: max(1.0, float(g.abs().max())) for k, g in grads0.items()}
+    del grads0, g1
+
+    def get(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+    worst_mom, worst_mb = 0.0, 0.0          # of the unsharded, of micro 8
+    for path, pl in lay.params.items():
+        key = "/".join(path)
+        for i, s in enumerate(mesh.present):
+            blk = lay.block(pl, s)
+            for tree, ref, ref_mb in (
+                    (shards[i]["params"], None, mb["params"]),
+                    (shards[i]["opt"]["m"], moments0["m"], mb["opt"]["m"]),
+                    (shards[i]["opt"]["v"], moments0["v"], mb["opt"]["v"])):
+                a = get(tree, path).float()
+                if ref is not None:
+                    worst_mom = max(worst_mom, float(
+                        (a - get(ref, path)[blk].float()).abs().max())
+                        / gmax[key])
+                b = get(ref_mb, path)[blk].float()
+                worst_mb = max(worst_mb, float((a - b).abs().max())
+                               / max(1.0, float(b.abs().max())))
+    del shards, mb, moments0, drawn
+    torch.cuda.empty_cache()
+    print(f"[shard] 2-layer f32 copy at full width, {SHARD_BATCH} x 256 "
+          f"tokens, S = 8: loss {float(m1['loss']):.6f} against "
+          f"{float(m0['loss']):.6f} unsharded (|d| {dl:.2e}, limit 1e-5); "
+          f"gradients within {worst:.2e} of max(1, |g|) and post-step "
+          f"moments within {worst_mom:.2e} (limit {TRAIN_GRAD_TOL}); "
+          f"post-step parameters and moments within {worst_mb:.2e} of "
+          f"max(1, |x|) of the micro_batches=8 step's (limit "
+          f"{SHARD_FLOOR:.2e}); {time.perf_counter() - t0:.1f} s")
+    if not (dl <= 1e-5 and worst <= TRAIN_GRAD_TOL
+            and worst_mom <= TRAIN_GRAD_TOL and worst_mb <= SHARD_FLOOR):
+        raise AssertionError("[shard] the 2-layer f32 sharded step differs "
+                             "from the unsharded steps")
+    return dict(loss_diff=dl, grad_rel=worst, moment_rel=worst_mom,
+                micro8_rel=worst_mb)
+
+
+def phase_shard(seed, out: Path):
+    """qwen1.5-4b's ZeRO-3 (FSDP-strategy) train step at S = 2 (data 2) and
+    S = 8 (data 4 × model 2) shards, all on the first card, at full width
+    and depth against its unsharded step and its micro-batch steps; the
+    2-layer f32 check; the dry-run's count of the S = 8 step's share
+    against the card's."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.parallel.fsdp import (StateLayout,
+                                           build_sharded_train_step,
+                                           init_sharded_state)
+    from repro_torch.parallel.sharding import (FSDP_RULES, make_act_sharder,
+                                               make_mesh)
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    # the dry-run's count of the S = 8 step's share runs on the host while
+    # the card steps
+    dry_json = out / "shard_dryrun_s8.json"
+    out.mkdir(parents=True, exist_ok=True)
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cfg.name, "--mesh", ",".join(f"{k}={v}" for k, v in
+                                      SHARD_MESHES[8].items()),
+         "--batch", str(SHARD_BATCH), "--seq", str(SHARD_SEQ),
+         "--opt", f"ce_chunk={SHARD_OPTS['ce_chunk']}", "--json",
+         str(dry_json)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 SyntheticTokenStream(TokenStreamConfig(
+                     vocab_size=cfg.vocab_size, seq_len=SHARD_SEQ,
+                     global_batch=SHARD_BATCH, seed=seed)).batch_at(0).items()}
+        sched = lambda step: torch.tensor(SHARD_LR, device=step.device)  # noqa: E731
+        gen = lambda: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+        model = Model(cfg, device=dev, opts=SHARD_OPTS)
+        n_params = count_params(cfg)
+        pre = _slices(model.init(gen()))
+        torch.cuda.empty_cache()
+        recs = {}
+        recs["unsharded"] = _shard_step(
+            "unsharded", lambda: init_train_state(model, gen()),
+            build_train_step(model, lr_schedule=sched), batch,
+            lambda st: st["params"])
+        for S in SHARD_MESHES:
+            mb = {k: v.reshape(S, SHARD_BATCH // S, SHARD_SEQ)
+                  for k, v in batch.items()}
+            recs[f"micro{S}"] = _shard_step(
+                f"unsharded, micro_batches={S}",
+                lambda: init_train_state(model, gen()),
+                build_train_step(model, lr_schedule=sched, micro_batches=S), mb,
+                lambda st: st["params"], reps=1)
+        layouts = {}
+        for S, axes in SHARD_MESHES.items():
+            mesh = make_mesh(axes, [dev])
+            smodel = Model(cfg, device=dev, opts=SHARD_OPTS,
+                           act_shard=make_act_sharder(mesh, FSDP_RULES))
+            lay = layouts[S] = StateLayout(smodel, mesh)
+            recs[f"S{S}"] = _shard_step(
+                f"FSDP S = {S} {axes}",
+                lambda: init_sharded_state(smodel, mesh, gen()),
+                build_sharded_train_step(smodel, mesh, lr_schedule=sched), batch,
+                lambda sh: lay.unshard_tree([s["params"] for s in sh]))
+        cut = _shard_cut(seed, dev)
+
+        # what must hold, and the bounds
+        u = recs["unsharded"]
+        p_bytes = 2 * n_params
+        state_bytes = p_bytes + 2 * 4 * n_params
+        bound_ms, bound_by, flops = _train_bound(
+            cfg, n_params, cfg.vocab_size * cfg.d_model, SHARD_BATCH * SHARD_SEQ,
+            SHARD_BATCH, SHARD_SEQ, 2 * p_bytes + p_bytes + 2 * 8 * n_params)
+        print(f"[shard] bound of the step {bound_ms:.1f} ms, by {bound_by} "
+              f"({flops:.3e} flops at bf16 dense); the floor of resident memory "
+              f"(parameters, moments, gradients): {(state_bytes + p_bytes) / 1e9:.3f} GB "
+              f"(bf16 gradients), {(state_bytes + 4 * n_params) / 1e9:.3f} GB "
+              f"(f32: the micro-batch accumulator, the shards' gradient blocks)")
+        checks = {}
+        for S in SHARD_MESHES:
+            r, mref = recs[f"S{S}"], recs[f"micro{S}"]
+            c = {}
+            for key in ("loss", "grad_norm"):
+                d_ref = abs(mref[key] - u[key]) / abs(u[key])
+                d = abs(r[key] - u[key]) / abs(u[key])
+                c[key] = (d, d_ref, 2 * max(d_ref, SHARD_FLOOR))
+            d_ref = _rel_to(mref["slices"], u["slices"], pre)
+            d = _rel_to(r["slices"], u["slices"], pre)
+            c["params"] = (d, d_ref, 2 * max(d_ref, SHARD_FLOOR))
+            checks[S] = c
+            lay = layouts[S]
+            per_dev = sum(int(np.prod([b.stop - b.start for b in lay.block(pl, 0)]))
+                          * 2 for pl in lay.params.values())
+            coll = r["collectives"]
+            print(f"[shard] S = {S}: {r['ms']:.1f} ms per step (host clock; "
+                  f"{r['event_ms']:.1f} ms CUDA events) against the unsharded "
+                  f"{u['ms']:.1f} ms and the bound {bound_ms:.1f} ms: "
+                  f"{bound_ms / r['ms']:.3f} of the bound; peak "
+                  f"{r['peak_bytes'] / 1e9:.3f} GB (unsharded "
+                  f"{u['peak_bytes'] / 1e9:.3f} GB)")
+            print(f"[shard] S = {S}: per device, all-gather "
+                  f"{coll['all-gather'] / 1e9:.4f} GB against the per-device "
+                  f"parameter bytes {per_dev / 1e9:.4f} GB (every leaf gathered "
+                  f"once; remat's recompute gathers each group again): "
+                  f"{coll['all-gather'] / per_dev:.3f}x; reduce-scatter "
+                  f"{coll['reduce-scatter'] / 1e9:.4f} GB against the bf16 "
+                  f"gradient of every split leaf {p_bytes / 1e9:.4f} GB; "
+                  f"all-reduce {coll['all-reduce']} B; calls {r['calls']}")
+            for key, (d, d_ref, lim) in c.items():
+                print(f"[shard] S = {S}: {key} {d:.3e} from the unsharded step "
+                      f"(relative), whose micro_batches={S} step is {d_ref:.3e} "
+                      f"from it: limit {lim:.3e}")
+                if not d <= lim:
+                    raise AssertionError(f"[shard] S = {S}: {key} {d:.3e} "
+                                         f"beyond {lim:.3e}")
+            # each shard runs the micro step's shapes and the f32
+            # reduce-scatter is its accumulator: the two steps must agree
+            # at an f32 floor (a wrong rate or a skipped leaf on an owner
+            # moves the post-step slices by far more)
+            c["vs_micro"] = {
+                key: abs(r[key] - mref[key]) / abs(mref[key])
+                for key in ("loss", "grad_norm")}
+            c["vs_micro"]["params"] = _rel_to(r["slices"], mref["slices"], pre)
+            for key, d in c["vs_micro"].items():
+                print(f"[shard] S = {S}: {key} {d:.3e} from its "
+                      f"micro_batches={S} step (relative; the parameters' "
+                      f"to that step's move): limit {SHARD_FLOOR:.3e}")
+                if not d <= SHARD_FLOOR:
+                    raise AssertionError(f"[shard] S = {S}: {key} {d:.3e} "
+                                         f"from the micro_batches={S} step, "
+                                         f"beyond {SHARD_FLOOR:.3e}")
+        # the dry-run's share of the S = 8 step against the card's
+        log, _ = dry.communicate(timeout=600)
+        if dry.returncode != 0:
+            raise AssertionError(f"[shard] the dry-run count failed:\n{log}")
+        got = json.loads(dry_json.read_text())
+        card = recs["S8"]
+        print(f"[shard] dry-run share of S = 8 on fakes ({got['seconds']:.1f} s "
+              f"on the host): collectives {got['collectives']}, parameters "
+              f"{got['param_bytes']} B per device; the card's step: "
+              f"{card['collectives']}, shard 0's blocks "
+              f"{card['shard0_param_bytes']} B")
+        if got["collectives"] != card["collectives"] or \
+                got["param_bytes"] != card["shard0_param_bytes"]:
+            raise AssertionError("[shard] the dry-run's count differs from the "
+                                 "card's step")
+    finally:                        # the host count never outlives the phase
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    wall = time.perf_counter() - t_phase
+    for r in recs.values():
+        r.pop("slices", None)
+    print(f"[shard] phase done in {wall:.1f} s")
+    return dict(recs=recs, checks={str(k): v for k, v in checks.items()},
+                cut=cut, dryrun=got, bound_ms=bound_ms, wall_s=wall)
+
+
 def train_device_time(rec, seed):
     """One step of ``rec``'s model (its arch, batch, micro-batches and seq)
     under torch.profiler, after the other device-time readings have freed
@@ -3020,6 +3427,8 @@ def main() -> int:
     bench = phase_bench(args.bench_n, args.bench_nq, out)
     torch.cuda.empty_cache()
     trained = phase_train(args.seed, out, scratch / "train")
+    torch.cuda.empty_cache()
+    sharded = phase_shard(args.seed, out)
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed, out)
     phase_device_times()
@@ -3188,7 +3597,7 @@ def main() -> int:
                    gather_dist=gd, gather_topk=gk, quantized=qrecs,
                    gather_rerank=rr, l2dist=l2, full=full, serve=served,
                    stream=stream, mesh=mesh, bench=bench, lm=lm,
-                   train=trained,
+                   train=trained, shard=sharded,
                    wall_seconds=time.perf_counter() - t_start)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1,
                                                     default=str))

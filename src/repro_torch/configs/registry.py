@@ -1,11 +1,11 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``list_archs()``
-(the reference's ``repro.configs.registry``, without the dry-run's
-``cells``)."""
+and the dry-run's ``cells`` (the reference's ``repro.configs.registry``)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, reduce_for_smoke
+from repro_torch.configs.base import (ArchConfig, SHAPES, SHAPE_ORDER,
+                                     reduce_for_smoke)
 
 _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
@@ -35,3 +35,17 @@ def get_config(arch: str) -> ArchConfig:
 def get_smoke_config(arch: str) -> ArchConfig:
     return reduce_for_smoke(get_config(arch))
 
+
+def cells(include_inapplicable: bool = False):
+    """All (arch, shape) dry-run cells; skipped cells carry a reason."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for sname in SHAPE_ORDER:
+            shape = SHAPES[sname]
+            if shape.applicable(cfg):
+                out.append((arch, sname, None))
+            elif include_inapplicable:
+                out.append((arch, sname, "long_500k requires sub-quadratic attention "
+                                         f"({cfg.family} is full-attention)"))
+    return out

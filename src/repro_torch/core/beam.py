@@ -96,13 +96,21 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
         return (torch.zeros((0, k), dtype=torch.int32, device=dev),
                 torch.zeros((0, k), dtype=torch.float32, device=dev),
                 {"hops": z, "ndist": z})
-    score = (vecs, None) if quant is None else quant
     kw = dict(ef=ef, steps_cap=steps_cap, early_stop=early_stop)
     if beam_width > 1:
         run = ops.beam_batched if use_kernel else ref.beam_batched_ref
         kw["beam_width"] = beam_width
     else:
         run = ops.beam_single if use_kernel else ref.beam_single_ref
+    return _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k, use_kernel,
+                   quant, live)
+
+
+def _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k, use_kernel, quant,
+            live):
+    """The hop loop ``run`` over the traversal's corpus, then the pool's
+    top-k (or its f32 rerank under ``quant``)."""
+    score = (vecs, None) if quant is None else quant
     cand_d, cand_ids, steps, ndist = run(*score, nbrs, qv, lo, hi, entry,
                                          **kw)
     ids, dists = _pool_finish(cand_d, cand_ids, live, k, quant)
@@ -110,3 +118,17 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
         ids, dists = rerank_pool(vecs, ids, qv, k, use_kernel)
     return ids, dists, {"hops": steps.to(torch.int32),
                         "ndist": ndist.to(torch.int32)}
+
+
+def beam_search_hop(vecs, nbrs, qv, lo, hi, entry, *, k: int = 10,
+                    ef: int = 64, beam_width: int = 1, quant=None,
+                    live=None, use_kernel: bool = False):
+    """``beam_search_batch``'s plain path with its lockstep loop cut to the
+    entry pool and one hop body (``ref.beam_hop_once``, no data-dependent
+    stop): what the dry-run counts on fake tensors, as the reference's HLO
+    cost analysis counts the beam's while-loop body once.  Inputs as
+    ``beam_search_batch``'s, already on the corpus' device."""
+    kw = dict(ef=ef, steps_cap=8 * ef + 64, beam_width=beam_width)
+    return _finish(ref.beam_hop_once, kw, vecs, nbrs,
+                   qv.to(torch.float32), lo.long(), hi.long(), entry, k,
+                   False, quant, live)

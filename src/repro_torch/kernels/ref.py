@@ -256,10 +256,9 @@ def init_pool(x, scale, qv, lo, hi, entry, ef: int):
     return cand_d, cand_ids, expanded, e0c, ev
 
 
-def beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                    steps_cap: int, early_stop: bool):
-    """Single-node expansion; x/scale: the corpus the traversal scores.
-    The plain version of ``ops.beam_single``."""
+def _single_init(x, scale, nbrs, qv, lo, hi, entry, ef: int):
+    """The single-node loop's state before its first hop: (cand_d,
+    cand_ids, expanded, visited, steps, ndist)."""
     n = nbrs.shape[0]
     nq = qv.shape[0]
     dev = x.device
@@ -269,61 +268,69 @@ def beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
     visited.scatter_(1, torch.where(ev, e0c, n), True)
     steps = torch.zeros(nq, dtype=torch.long, device=dev)
     ndist = torch.zeros(nq, dtype=torch.long, device=dev)
-    rows = torch.arange(nq, device=dev)
+    return cand_d, cand_ids, expanded, visited, steps, ndist
 
+
+def _single_hop(x, scale, nbrs, qv, lo, hi, ef: int, st, act):
+    """One hop of the single-node loop on the lanes ``act``: expand each
+    lane's best unexpanded candidate, score its fresh in-range neighbors
+    and merge them into the pool.  Returns the next state."""
+    cand_d, cand_ids, expanded, visited, steps, ndist = st
+    n = nbrs.shape[0]
+    rows = torch.arange(qv.shape[0], device=x.device)
+    bi = torch.where(~expanded, cand_d, INF).argmin(1)   # first minimum
+    exp_n = expanded.clone()
+    exp_n[rows, bi] = True
+    node = cand_ids[rows, bi].clamp_min(0)
+    nb = nbrs[node].long()                  # (Q,m)
+    valid = (nb >= 0) & (nb >= lo[:, None]) & (nb <= hi[:, None])
+    nbc = nb.clamp_min(0)
+    valid &= ~visited.gather(1, nbc)
+    valid &= act[:, None]                   # a finished lane is frozen
+    visited.scatter_(1, torch.where(valid, nb, n), True)
+    d_nb = torch.where(valid, gather_dist_ref(x, nbc, qv, scale), INF)
+    ids_all = torch.cat([cand_ids, nb], dim=1)
+    d_all = torch.cat([cand_d, d_nb], dim=1)
+    exp_all = torch.cat([exp_n, ~valid], dim=1)           # invalid: never expand
+    order = torch.argsort(d_all, dim=1, stable=True)[:, :ef]
+    a = act[:, None]
+    cand_d = torch.where(a, d_all.gather(1, order), cand_d)
+    expanded = torch.where(a, exp_all.gather(1, order), expanded)
+    cand_ids = torch.where(a, ids_all.gather(1, order), cand_ids)
+    return (cand_d, cand_ids, expanded, visited, steps + act,
+            ndist + valid.sum(1))
+
+
+def beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
+                    steps_cap: int, early_stop: bool):
+    """Single-node expansion; x/scale: the corpus the traversal scores.
+    The plain version of ``ops.beam_single``."""
+    st = _single_init(x, scale, nbrs, qv, lo, hi, entry, ef)
     while True:
-        act = _go(cand_d, expanded, steps, steps_cap, early_stop)
+        act = _go(st[0], st[2], st[4], steps_cap, early_stop)
         if not bool(act.any()):
             break
-        bi = torch.where(~expanded, cand_d, INF).argmin(1)   # first minimum
-        exp_n = expanded.clone()
-        exp_n[rows, bi] = True
-        node = cand_ids[rows, bi].clamp_min(0)
-        nb = nbrs[node].long()                  # (Q,m)
-        valid = (nb >= 0) & (nb >= lo[:, None]) & (nb <= hi[:, None])
-        nbc = nb.clamp_min(0)
-        valid &= ~visited.gather(1, nbc)
-        valid &= act[:, None]                   # a finished lane is frozen
-        visited.scatter_(1, torch.where(valid, nb, n), True)
-        d_nb = torch.where(valid, gather_dist_ref(x, nbc, qv, scale), INF)
-        ids_all = torch.cat([cand_ids, nb], dim=1)
-        d_all = torch.cat([cand_d, d_nb], dim=1)
-        exp_all = torch.cat([exp_n, ~valid], dim=1)           # invalid: never expand
-        order = torch.argsort(d_all, dim=1, stable=True)[:, :ef]
-        a = act[:, None]
-        cand_d = torch.where(a, d_all.gather(1, order), cand_d)
-        expanded = torch.where(a, exp_all.gather(1, order), expanded)
-        cand_ids = torch.where(a, ids_all.gather(1, order), cand_ids)
-        steps += act
-        ndist += valid.sum(1)
+        st = _single_hop(x, scale, nbrs, qv, lo, hi, ef, st, act)
+    cand_d, cand_ids, _, _, steps, ndist = st
     return cand_d, cand_ids, steps, ndist
 
 
-def beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                     steps_cap: int, beam_width: int, early_stop: bool):
-    """Batched expansion; x/scale: the corpus the traversal scores.  The
-    plain version of ``ops.beam_batched``."""
-    n, m = nbrs.shape
+def _batched_plan(ef: int, m: int, beam_width: int):
+    """(B, F, H, fm): lanes expanded per hop (the pool holds ef candidates,
+    so at most ef can be unexpanded), fresh neighbors per hop, the visited
+    table's size, and the fresh candidates that can survive the merge."""
+    B = min(int(beam_width), ef)
+    F = B * m
+    return B, F, visited_table_size(ef, m), min(F, ef)
+
+
+def _batched_init(x, scale, nbrs, qv, lo, hi, entry, ef: int,
+                  beam_width: int):
+    """The batched loop's state before its first hop: (cand_d, cand_ids,
+    expanded, table, steps, ndist), the pool sorted."""
     nq = qv.shape[0]
     dev = x.device
-    # the pool holds ef candidates, so at most ef can be unexpanded
-    B = min(int(beam_width), ef)
-    F = B * m                           # fresh neighbors per iteration
-    H = visited_table_size(ef, m)
-    # only the best min(F, ef) fresh candidates can survive the merge
-    fm = min(F, ef)
-
-    def fresh_sorted(ids_f, valid):
-        """(Q,F) masked neighbor ids -> distance-sorted (Q,fm) fresh list
-        (ids -1 / dist inf beyond the valid entries): the (dist, position)
-        top-k of ``gather_topk``."""
-        ids_m = torch.where(valid, ids_f, -1)
-        d = torch.where(valid,
-                        gather_dist_ref(x, ids_f.clamp_min(0), qv, scale),
-                        INF)
-        o = torch.argsort(d, dim=1, stable=True)[:, :fm]
-        return d.gather(1, o), ids_m.gather(1, o)
-
+    _, _, H, _ = _batched_plan(ef, nbrs.shape[1], beam_width)
     cand_d, cand_ids, expanded, e0c, ev = init_pool(x, scale, qv, lo, hi,
                                                     entry, ef)
     o = torch.argsort(cand_d, dim=1, stable=True)   # the merge keeps it sorted
@@ -333,40 +340,86 @@ def beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
     _table_insert(table, torch.where(ev, e0c, -1), H)
     steps = torch.zeros(nq, dtype=torch.long, device=dev)
     ndist = torch.zeros(nq, dtype=torch.long, device=dev)
+    return cand_d, cand_ids, expanded, table, steps, ndist
+
+
+def _batched_hop(x, scale, nbrs, qv, lo, hi, ef: int, beam_width: int, st,
+                 act):
+    """One hop of the batched loop on the lanes ``act``: expand each lane's
+    best B unexpanded candidates, score their fresh deduplicated in-range
+    neighbors (the (dist, position) top-k of ``gather_topk``) and merge
+    them into the sorted pool.  Returns the next state."""
+    cand_d, cand_ids, expanded, table, steps, ndist = st
+    n, m = nbrs.shape
+    nq = qv.shape[0]
+    dev = x.device
+    B, F, H, fm = _batched_plan(ef, m, beam_width)
     ar_ef = torch.arange(ef, device=dev)
     ar_f = torch.arange(F, device=dev)
     before = ar_f[None, :] < ar_f[:, None]           # before[i, j]: j < i
+    # best B unexpanded: the pool is sorted, so the first B selectable
+    lane = torch.where(~expanded & torch.isfinite(cand_d), ar_ef, ef)
+    lanes = torch.sort(lane, dim=1).values[:, :B]              # (Q,B)
+    take = lanes < ef
+    node = torch.where(take, cand_ids.gather(1, lanes.clamp_max(ef - 1)),
+                       -1)
+    exp_n = expanded | torch.any((ar_ef[None, None, :] == lanes[:, :, None])
+                                 & take[:, :, None], dim=1)
+    ids_f = nbrs[node.clamp_min(0)].reshape(nq, F).long()
+    valid = ((ids_f >= 0) & (ids_f >= lo[:, None]) & (ids_f <= hi[:, None])
+             & (node >= 0).repeat_interleave(m, dim=1))
+    # intra-hop dedup: keep the first occurrence of a shared neighbor
+    eq = ids_f[:, :, None] == ids_f[:, None, :]
+    valid &= ~torch.any(eq & before[None] & valid[:, None, :], dim=2)
+    # pool-membership dedup: anything held in the pool is scored
+    valid &= ~torch.any(ids_f[:, :, None] == cand_ids[:, None, :], dim=2)
+    # lossy visited set: false negatives fall through to a re-score
+    valid &= ~_table_lookup(table, ids_f, H)
+    valid &= act[:, None]                   # a finished lane is frozen
+    _table_insert(table, torch.where(valid, ids_f, -1), H)
+    # the fresh list, distance-sorted: (Q,fm), ids -1 / dist inf beyond
+    # the valid entries
+    ids_m = torch.where(valid, ids_f, -1)
+    d = torch.where(valid, gather_dist_ref(x, ids_f.clamp_min(0), qv, scale),
+                    INF)
+    o = torch.argsort(d, dim=1, stable=True)[:, :fm]
+    fd, fi = d.gather(1, o), ids_m.gather(1, o)
+    md, mi, me = _merge_sorted(cand_d, cand_ids, exp_n, fd, fi, fi < 0, ef)
+    a = act[:, None]
+    return (torch.where(a, md, cand_d), torch.where(a, mi, cand_ids),
+            torch.where(a, me, expanded), table, steps + act,
+            ndist + valid.sum(1))
 
+
+def beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
+                     steps_cap: int, beam_width: int, early_stop: bool):
+    """Batched expansion; x/scale: the corpus the traversal scores.  The
+    plain version of ``ops.beam_batched``."""
+    st = _batched_init(x, scale, nbrs, qv, lo, hi, entry, ef, beam_width)
     while True:
-        act = _go(cand_d, expanded, steps, steps_cap, early_stop)
+        act = _go(st[0], st[2], st[4], steps_cap, early_stop)
         if not bool(act.any()):
             break
-        # best B unexpanded: the pool is sorted, so the first B selectable
-        lane = torch.where(~expanded & torch.isfinite(cand_d), ar_ef, ef)
-        lanes = torch.sort(lane, dim=1).values[:, :B]              # (Q,B)
-        take = lanes < ef
-        node = torch.where(take, cand_ids.gather(1, lanes.clamp_max(ef - 1)),
-                           -1)
-        exp_n = expanded | torch.any((ar_ef[None, None, :] == lanes[:, :, None])
-                                     & take[:, :, None], dim=1)
-        ids_f = nbrs[node.clamp_min(0)].reshape(nq, F).long()
-        valid = ((ids_f >= 0) & (ids_f >= lo[:, None]) & (ids_f <= hi[:, None])
-                 & (node >= 0).repeat_interleave(m, dim=1))
-        # intra-hop dedup: keep the first occurrence of a shared neighbor
-        eq = ids_f[:, :, None] == ids_f[:, None, :]
-        valid &= ~torch.any(eq & before[None] & valid[:, None, :], dim=2)
-        # pool-membership dedup: anything held in the pool is scored
-        valid &= ~torch.any(ids_f[:, :, None] == cand_ids[:, None, :], dim=2)
-        # lossy visited set: false negatives fall through to a re-score
-        valid &= ~_table_lookup(table, ids_f, H)
-        valid &= act[:, None]                   # a finished lane is frozen
-        _table_insert(table, torch.where(valid, ids_f, -1), H)
-        fd, fi = fresh_sorted(ids_f, valid)
-        md, mi, me = _merge_sorted(cand_d, cand_ids, exp_n, fd, fi, fi < 0, ef)
-        a = act[:, None]
-        cand_d = torch.where(a, md, cand_d)
-        cand_ids = torch.where(a, mi, cand_ids)
-        expanded = torch.where(a, me, expanded)
-        steps += act
-        ndist += valid.sum(1)
+        st = _batched_hop(x, scale, nbrs, qv, lo, hi, ef, beam_width, st,
+                          act)
+    cand_d, cand_ids, _, _, steps, ndist = st
     return cand_d, cand_ids, steps, ndist
+
+
+def beam_hop_once(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
+                  steps_cap: int, beam_width: int = 1,
+                  early_stop: bool = True):
+    """The lockstep loop's entry pool and ONE hop body, with no
+    data-dependent stop (which a fake tensor cannot take): the dry-run's
+    count of the beam, as the reference's HLO cost analysis counts the
+    beam's while-loop body once.  Returns the loops' outputs."""
+    if beam_width > 1:
+        st = _batched_init(x, scale, nbrs, qv, lo, hi, entry, ef, beam_width)
+        act = _go(st[0], st[2], st[4], steps_cap, early_stop)
+        st = _batched_hop(x, scale, nbrs, qv, lo, hi, ef, beam_width, st,
+                          act)
+    else:
+        st = _single_init(x, scale, nbrs, qv, lo, hi, entry, ef)
+        act = _go(st[0], st[2], st[4], steps_cap, early_stop)
+        st = _single_hop(x, scale, nbrs, qv, lo, hi, ef, st, act)
+    return st[0], st[1], st[4], st[5]

@@ -1,6 +1,7 @@
-"""Concrete input batches for the LM scaffold (the reference's
-``repro.launch.specs.concrete_batch``; the dry-run's ``input_specs`` waits
-for the dry-run tools).
+"""Input stand-ins for every (arch × shape) cell, and concrete batches
+for the LM scaffold (the reference's ``repro.launch.specs``).
+
+Shapes follow the assignment contract:
 
   * train/prefill: tokens (batch, seq)
   * decode: ONE new token per row
@@ -14,9 +15,32 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.params import DTYPES
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, dm=None) -> Dict:
+    """The cell's global batch as meta tensors of the reference's shapes
+    and dtypes (no allocation)."""
+    b, s = shape.global_batch, shape.seq_len
+    bf = DTYPES[cfg.dtype]
+    sds = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")  # noqa: E731
+    out: Dict = {}
+    if shape.kind == "train":
+        out["tokens"] = sds((b, s), torch.int32)
+        out["labels"] = sds((b, s), torch.int32)
+    elif shape.kind == "prefill":
+        out["tokens"] = sds((b, s), torch.int32)
+    elif shape.kind == "decode":
+        out["token"] = sds((b,), torch.int32)
+    if cfg.family == "encdec" and shape.kind in ("train", "prefill"):
+        out["frames"] = sds((b, max(s // 4, 1),
+                             cfg.frontend_dim or cfg.d_model), bf)
+    if cfg.family == "vlm" and shape.kind in ("train", "prefill"):
+        out["patches"] = sds((b, cfg.n_frontend_tokens,
+                              cfg.frontend_dim or cfg.d_model), bf)
+    return out
 
 
 def concrete_batch(cfg: ArchConfig, shape_kind: str, batch: int, seq: int,

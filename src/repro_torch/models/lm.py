@@ -27,7 +27,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import cross_entropy, embed_tokens, mlp, norm
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (DTYPES, ModelDims, ShardPlan,
-                                       init_params, resolve_dims)
+                                       init_params, param_shapes,
+                                       resolve_dims)
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -63,22 +64,32 @@ def _mlp_block(x, p, cfg):
 
 def _group(tree, g: int):
     """The g-th group's slice of a stacked tree (views)."""
-    return {k: _group(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
+    return {k: _group_slice(v, g) for k, v in tree.items()}
+
+
+def _group_slice(v, g: int):
+    """The g-th group's slice of a stacked leaf or tree (views)."""
+    return _group(v, g) if isinstance(v, dict) else v[g]
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, plan: ShardPlan = ShardPlan(),
-                 mesh=None, opts: Optional[Dict] = None, device=None):
+                 mesh=None, act_shard=None, opts: Optional[Dict] = None,
+                 device=None):
         """``device``: where the parameters, inputs and caches live
-        (``None``: the card, raising without one).  opts: ``q_chunk`` /
-        ``kv_chunk`` (flash-attention tile sizes), ``ssm_chunk`` (SSD
-        chunk length), ``ce_chunk`` (the loss's sequence slice) and
-        ``remat_group`` (layers per checkpointed super-group, default the
-        config's); the reference's dry-run options (``unroll``,
-        ``block_skip``) are accepted and ignored.  ``mesh``: a
-        ``parallel.sharding.ShardMesh`` over which ``moe_ffn`` splits its
-        tokens and experts."""
+        (``None``: the card, raising without one; ``"meta"`` for the
+        dry-run's stand-ins).  opts: ``q_chunk`` / ``kv_chunk``
+        (flash-attention tile sizes), ``ssm_chunk`` (SSD chunk length),
+        ``ssd_dtype`` (``"bfloat16"`` keeps the SSD's intra-chunk decay
+        and weight tensors in bf16), ``ce_chunk`` (the loss's sequence
+        slice), ``remat_group`` (layers per checkpointed super-group,
+        default the config's) and ``sp`` (the residual stream's logical
+        seq axis, which only the TP rules map); the reference's dry-run
+        options (``unroll``, ``block_skip``) are accepted and ignored.
+        ``mesh``: a ``parallel.sharding.ShardMesh`` over which ``moe_ffn``
+        splits its tokens and experts.  ``act_shard(x, logical) -> x``:
+        the activation-sharding hook (``parallel.sharding.
+        make_act_sharder``), called on each group's output."""
         super().__init__()
         self.cfg = cfg
         self.plan = plan
@@ -86,16 +97,27 @@ class Model(nn.Module):
         self.mesh = mesh
         self.device = resolve_device(device)
         self.opts = dict(opts or {})
+        self.sp = bool(self.opts.get("sp", False))
         self._attn_opts = {k: self.opts[k] for k in
                            ("q_chunk", "kv_chunk", "unroll", "block_skip")
                            if k in self.opts}
-        self._ssm_opts = {k: self.opts[k] for k in ("ssm_chunk",)
+        self._ssm_opts = {k: self.opts[k] for k in ("ssm_chunk", "ssd_dtype")
                           if k in self.opts}
+        # act_shard(x, logical_tuple) -> x  (sharding constraint hook)
+        self._sa = act_shard or (lambda x, spec: x)
+
+    def _res_spec(self):
+        """Residual-stream activation sharding (SP shards seq over 'model')."""
+        return ("batch", "sp", None) if self.sp else ("batch", None, None)
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator) -> Dict:
         """Parameters drawn with ``generator`` (on ``self.device``)."""
         return init_params(self.cfg, self.plan, generator, self.device)
+
+    def param_shapes(self) -> Dict:
+        """The parameter tree as meta tensors (no allocation)."""
+        return param_shapes(self.cfg, self.plan)
 
     # ------------------------------------------------------------- embedding
     def _embed(self, params, tokens):
@@ -112,121 +134,179 @@ class Model(nn.Module):
         return x.float() @ self._head_matrix(params).to(x.dtype).float()
 
     # ------------------------------------------------------------- stacks
-    def _group_train(self, x, pl, positions, memory_kv=None):
-        """One group, full sequence. Returns (x, aux)."""
+    def _group_layers(self):
+        """One group's sublayers in order, as (kind, parameter key): kind
+        ``attn`` (self-attention), ``cross`` (cross-attention over the
+        frontend memory), ``ssm``, ``mlp`` or ``moe``."""
         cfg, dm = self.cfg, self.dm
-        ao, so = self._attn_opts, self._ssm_opts
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         fam = cfg.family
         if fam in ("dense", "moe"):
-            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
-            if fam == "moe":
-                f, a = moe_ffn(x, pl["moe"], cfg, dm, self.mesh)
-                x, aux = x + f, aux + a
-            else:
-                x = _mlp_block(x, pl["mlp"], cfg)
-        elif fam == "ssm":
-            x = x + ssm_mod.mamba_train(x, pl["ssm"], cfg, dm, opts=so)
-        elif fam == "hybrid":
+            return [("attn", "attn"),
+                    ("moe", "moe") if fam == "moe" else ("mlp", "mlp")]
+        if fam == "ssm":
+            return [("ssm", "ssm")]
+        if fam == "hybrid":
+            out = []
             for j in range(dm.group_layers):
-                if j == 0:
-                    x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
-                else:
-                    x = x + ssm_mod.mamba_train(x, pl[f"ssm{j}"], cfg, dm, opts=so)
-                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
-                    f, a = moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)
-                    x, aux = x + f, aux + a
-                else:
-                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
-        elif fam in ("encdec", "vlm"):
-            x = x + attn.self_attn_train(x, pl["attn"], cfg, dm, positions, opts=ao)
-            ckv = attn.cross_kv(memory_kv, pl["cross"], cfg, dm)
-            x = x + attn.cross_attn(x, ckv, pl["cross"], cfg, dm, opts=ao)
-            x = _mlp_block(x, pl["mlp"], cfg)
-            for j in range(1, dm.group_layers if fam == "vlm" else 1):
-                x = x + attn.self_attn_train(x, pl[f"attn{j}"], cfg, dm, positions, opts=ao)
-                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
-        return x, aux
+                out.append(("attn", "attn") if j == 0 else ("ssm", f"ssm{j}"))
+                out.append(("moe", f"ffn{j}_moe")
+                           if cfg.n_experts and (j % cfg.moe_every
+                                                 == cfg.moe_every - 1)
+                           else ("mlp", f"ffn{j}"))
+            return out
+        out = [("attn", "attn"), ("cross", "cross"), ("mlp", "mlp")]
+        for j in range(1, dm.group_layers if fam == "vlm" else 1):
+            out += [("attn", f"attn{j}"), ("mlp", f"mlp{j}")]
+        return out
 
-    def _stack_train(self, params, x, positions, memory=None):
-        """The groups in order, each super-group of ``remat_group`` groups
+    def _sublayer(self, kind: str, x, p, positions, memory_kv=None):
+        """x after one sublayer of ``kind`` other than ``moe``, residual
+        included."""
+        cfg, dm = self.cfg, self.dm
+        ao = self._attn_opts
+        if kind == "attn":
+            return x + attn.self_attn_train(x, p, cfg, dm, positions, opts=ao)
+        if kind == "ssm":
+            return x + ssm_mod.mamba_train(x, p, cfg, dm,
+                                           opts=self._ssm_opts)
+        if kind == "mlp":
+            return _mlp_block(x, p, cfg)
+        if kind == "cross":
+            ckv = attn.cross_kv(memory_kv, p, cfg, dm)
+            return x + attn.cross_attn(x, ckv, p, cfg, dm, opts=ao)
+        raise ValueError(kind)
+
+    def _train_parts(self, fetch, batches, each, moe):
+        """The training forward of one or more batch parts (one for
+        ``loss``; one per present shard for the sharded step, which runs
+        this same walk group by group across its shards).  ``fetch(names,
+        g=None)``: for each part, a dict of the top-level parameter
+        ``names`` that exist (with ``g``, every leaf's g-th group slice);
+        ``each(fn, *lists)``: ``[fn(i, *items_i)]`` over the parts;
+        ``moe(xs, ps)``: (the parts' MoE outputs, aux).  Returns (each
+        part's ``_ce_sums``, aux).
+
+        The groups run in order, each super-group of ``remat_group`` groups
         checkpointed as one (the reference scans over super-groups: the
         saved carry shrinks by r at the price of r groups recomputed
-        together); r falls back to 1 when it does not divide the groups."""
+        together); r falls back to 1 when it does not divide the groups.
+        Weights are fetched inside the checkpointed region, so a sharded
+        fetch gathers them again in the recompute."""
+        cfg = self.cfg
         G = self.dm.groups
-        r = max(1, int(self.opts.get("remat_group", self.cfg.remat_group)))
+        r = max(1, int(self.opts.get("remat_group", cfg.remat_group)))
         if G % r:
             r = 1
-        blocks = params["blocks"]
+        positions = each(lambda i, b: torch.arange(
+            b["tokens"].shape[1], device=b["tokens"].device)[None, :], batches)
+        memories = self._memories(fetch, batches, each)
 
-        def body(x, aux, g0: int):
+        def body(aux, g0: int, *xs):
+            xs = list(xs)
             for g in range(g0, g0 + r):
-                x, a = self._group_train(x, _group(blocks, g), positions,
-                                         memory)
-                aux = aux + a
-            return x, aux
+                pls = [p["blocks"] for p in fetch(("blocks",), g)]
+                ga = torch.zeros((), dtype=torch.float32, device=aux.device)
+                for kind, key in self._group_layers():
+                    if kind == "moe":
+                        ys, a = moe(xs, [p[key] for p in pls])
+                        xs = [x + y for x, y in zip(xs, ys)]
+                        ga = ga + a
+                    else:
+                        xs = each(lambda i, x, p, pos, mem: self._sublayer(
+                            kind, x, p[key], pos, mem),
+                            xs, pls, positions, memories)
+                xs = [self._sa(x, self._res_spec()) for x in xs]
+                aux = aux + ga
+            return (aux, *xs)
 
-        body = _remat(body, self.cfg.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        body = _remat(body, cfg.remat)
+        xs = each(lambda i, b, p: embed_tokens(b["tokens"], p["embed"]),
+                  batches, fetch(("embed",)))
+        aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
         for g0 in range(0, G, r):
-            x, aux = body(x, aux, g0)
-        return x, aux
+            aux, *xs = body(aux, g0, *xs)
+        xs = each(lambda i, x, p: norm(x, p, cfg.norm, "final_norm"),
+                  xs, fetch(("final_norm", "final_norm_b")))
+        heads = (fetch(("embed",)) if cfg.tie_embeddings
+                 else fetch(("lm_head",)))
+        return each(lambda i, x, h, b: self._ce_sums(self._head_matrix(h), x,
+                                                     b["labels"]),
+                    xs, heads, batches), aux
 
     # ------------------------------------------------------------- encoder
-    def _encode(self, params, frames):
+    def _memories(self, fetch, batches, each):
+        """Each part's frontend memory (``_train_parts``' arguments): the
+        encoder over its audio frames (encdec) or its projected image
+        patches (vlm); None otherwise."""
         cfg, dm = self.cfg, self.dm
-        x = frames
-        if "frontend_proj" in params:
-            x = x @ params["frontend_proj"]
-        x = x.to(DTYPES[cfg.dtype])
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        if cfg.family not in ("encdec", "vlm"):
+            return [None] * len(batches)
+        key = "frames" if cfg.family == "encdec" else "patches"
+        xs = each(lambda i, b, p: (b[key] @ p["frontend_proj"]
+                                   if "frontend_proj" in p else b[key]
+                                   ).to(DTYPES[cfg.dtype]),
+                  batches, fetch(("frontend_proj",)))
+        if cfg.family == "vlm":
+            return xs
+        positions = each(lambda i, x: torch.arange(
+            x.shape[1], device=x.device)[None, :], xs)
 
-        def enc_group(h, g):
-            pl = _group(params["enc_blocks"], g)
-            h = h + attn.self_attn_train(h, pl["attn"], cfg, dm, positions,
-                                         causal=False, opts=self._attn_opts)
-            return _mlp_block(h, pl["mlp"], cfg)
+        def enc_layer(g: int, *xs):
+            pls = [p["enc_blocks"] for p in fetch(("enc_blocks",), g)]
+            return tuple(each(lambda i, h, p, pos: self._enc_group(h, p, pos),
+                              list(xs), pls, positions))
 
-        body = _remat(enc_group, cfg.remat)
+        body = _remat(enc_layer, cfg.remat)
         for g in range(dm.enc_layers):
-            x = body(x, g)
-        return norm(x, params, cfg.norm, "enc_final_norm")
+            xs = list(body(g, *xs))
+        return each(lambda i, x, p: norm(x, p, cfg.norm, "enc_final_norm"),
+                    xs, fetch(("enc_final_norm", "enc_final_norm_b")))
+
+    def _enc_group(self, h, pl, positions):
+        """One encoder layer (bidirectional self-attention, then the MLP)."""
+        cfg, dm = self.cfg, self.dm
+        h = h + attn.self_attn_train(h, pl["attn"], cfg, dm, positions,
+                                     causal=False, opts=self._attn_opts)
+        return self._sa(_mlp_block(h, pl["mlp"], cfg), self._res_spec())
+
+    def _local(self, params):
+        """``_train_parts``' fetch, each and moe for one part holding the
+        whole tree ``params``."""
+        def fetch(names, g=None):
+            return [{n: params[n] if g is None else _group_slice(params[n], g)
+                     for n in names if n in params}]
+
+        def each(fn, *lists):
+            return [fn(0, *(lst[0] for lst in lists))]
+
+        def moe(xs, ps):
+            y, a = moe_ffn(xs[0], ps[0], self.cfg, self.dm, self.mesh)
+            return [y], a
+        return fetch, each, moe
 
     def _memory(self, params, batch):
         """Frontend memory for encdec (audio frames) / vlm (image patches)."""
-        cfg = self.cfg
-        if cfg.family == "encdec":
-            return self._encode(params, batch["frames"])
-        if cfg.family == "vlm":
-            x = batch["patches"]
-            if "frontend_proj" in params:
-                x = x @ params["frontend_proj"]
-            return x.to(DTYPES[cfg.dtype])
-        return None
+        fetch, each, _ = self._local(params)
+        return self._memories(fetch, [batch], each)[0]
 
     # ------------------------------------------------------------- train
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """(ce + 0.01·aux, {"loss": ce, "aux": aux}) of a batch of
         ``tokens`` and ``labels`` (B, S); labels < 0 are not scored."""
-        cfg = self.cfg
-        tokens, labels = batch["tokens"], batch["labels"]
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        memory = self._memory(params, batch)
-        x = self._embed(params, tokens)
-        x, aux = self._stack_train(params, x, positions, memory)
-        x = norm(x, params, cfg.norm, "final_norm")
-        ce = self._chunked_ce(params, x, labels)
+        fetch, each, moe = self._local(params)
+        [(tot, cnt)], aux = self._train_parts(fetch, [batch], each, moe)
+        ce = tot / torch.clamp_min(cnt, 1.0)
         total = ce + 0.01 * aux
         return total, {"loss": ce, "aux": aux}
 
-    def _chunked_ce(self, params, x, labels):
+    def _ce_sums(self, head, x, labels):
         """Sequence-chunked CE so (tokens × vocab) logits are never live at
         once: a loop over slices of ``ce_chunk`` positions (the last padded
         with label -1), each checkpointed so its f32 logits are recomputed
-        in backward."""
+        in backward.  Returns (summed token NLL, scored-token count); a
+        sharded step adds both over its shards before the ratio."""
         cfg = self.cfg
         s = x.shape[1]
-        head = self._head_matrix(params)
         c = min(int(self.opts.get("ce_chunk", 1024)), s)
         pad = (-s) % c
         if pad:
@@ -251,7 +331,7 @@ class Model(nn.Module):
                        if grad else chunk_loss(*args))
             tot = tot + nll
             cnt = cnt + nv
-        return tot / torch.clamp_min(cnt, 1.0)
+        return tot, cnt
 
     # ------------------------------------------------------------- serve
     def init_cache(self, batch_size: int, max_len: int) -> Dict:

@@ -7,18 +7,25 @@ buffer of per-expert capacity C (overflowing tokens go to a dump row that is
 dropped), run through each expert's SwiGLU FFN, and scatter-added back
 weighted by their renormalised gates.
 
-On a ``ShardMesh`` of S > 1 shards the tokens are split over the shards
-(when S divides them; else every shard takes them all), and each shard
-routes its own tokens with its own capacity:
+On a ``ShardMesh`` of S > 1 shards the tokens are split as the reference's
+``shard_map`` splits them: over every mesh axis, or the widest prefix of
+the axes whose shard count divides the tokens (on one axis: over the S
+shards when S divides them, else every shard takes them all), and each
+shard routes its own tokens with its own capacity:
 
-* **EP** (``E % S == 0``): experts are split over the shards; each shard's
-  ``(E, C, D)`` buffer goes through a tiled ``all_to_all`` to the experts'
-  owners, which run their slice of the experts on ``(E/S, S·C, D)``, and
-  the reverse exchange brings each shard its ``(E, C, D)`` back.
+* **EP** (experts split over the EP axis: ``model`` on a mesh of several
+  axes when ``E % model == 0``, the one axis of a one-axis mesh when
+  ``E % S == 0``): each shard's ``(E, C, D)`` buffer goes through a tiled
+  ``all_to_all`` within its EP group to the experts' owners, which run
+  their slice of the experts on ``(E/G, G·C, D)``, and the reverse
+  exchange brings each shard its ``(E, C, D)`` back.
 * **fallback**: the experts are replicated and each shard runs the whole
   MoE on its tokens.
 
 The aux loss is averaged over the shards (the reference's ``pmean``).
+``moe_shards`` is the per-shard form (one token block and one weight set
+per shard), which the sharded train step calls with each shard's own
+tokens and its gathered weights.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import norm
 from repro_torch.models.params import ModelDims
-from repro_torch.parallel.sharding import ShardMesh, all_to_all, on_device
+from repro_torch.parallel.sharding import (ShardMesh, all_reduce, all_to_all,
+                                          on_device)
 
 
 def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
@@ -99,52 +107,96 @@ def _moe_local(xt, router, w_in, w_gate, w_out, k: int, cf: float):
     return _combine(out, meta, gates, t), aux
 
 
-def _moe_mesh(xt, p, k: int, cf: float, e: int, mesh: ShardMesh):
-    """The reference's ``shard_map`` body over a one-axis mesh (module
-    docstring): (T,D) tokens on the caller's device → ((T,D), aux)."""
-    S, devs = mesh.size, mesh.devices
-    t = xt.shape[0]
-    split = t % S == 0
-    toks = torch.chunk(xt, S) if split else [xt] * S
-    ep = e % S == 0
-    w = {n: p[n] for n in ("w_in", "w_gate", "w_out")}
-    if not ep:
+def ep_axis(mesh: ShardMesh, e: int):
+    """The axis the experts split over, or None (replicated experts)."""
+    if len(mesh.axis_names) == 1:
+        return mesh.axis if mesh.size > 1 and e % mesh.size == 0 else None
+    m = mesh.shape.get("model", 1)
+    return "model" if m > 1 and e % m == 0 else None
+
+
+def token_axes(mesh: ShardMesh, t: int):
+    """The reference's token split: every axis, else the widest prefix
+    whose shard count divides ``t`` (``()``: every shard takes them all)."""
+    names = mesh.axis_names
+    for cand in (names, names[:-1], names[:1], ()):
+        n = math.prod(mesh.shape[a] for a in cand)
+        if n and t % max(1, n) == 0:
+            return cand
+    return ()
+
+
+def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh):
+    """The reference's ``shard_map`` body on every present shard of
+    ``mesh``: ``toks[i]`` (T_i, D) the i-th present shard's tokens on its
+    device, ``ws[i]`` its ``router`` / ``w_in`` / ``w_gate`` / ``w_out``
+    (all E experts, or under EP its own E/G).  Returns (the shards' (T_i,
+    D) outputs, the aux loss averaged over the shards, on the first
+    present shard's device)."""
+    names = ("w_in", "w_gate", "w_out")
+    axis = ep_axis(mesh, e)
+    devs = [mesh.devices[s] for s in mesh.present]
+    if axis is None:
         ys, auxs = [], []
-        for s, dev in enumerate(devs):
+        for xs, w, dev in zip(toks, ws, devs):
             with on_device(dev):
-                y, a = _moe_local(toks[s].to(dev), p["router"].to(dev),
-                                  *(w[n].to(dev) for n in w), k, cf)
+                y, a = _moe_local(xs, w["router"], *(w[n] for n in names),
+                                  k, cf)
             ys.append(y)
             auxs.append(a)
     else:
+        G = mesh.shape[axis]
         bufs, metas, gates_l, auxs = [], [], [], []
-        for s, dev in enumerate(devs):
+        for xs, w, dev in zip(toks, ws, devs):
             with on_device(dev):
-                xs = toks[s].to(dev)
-                gates, eidx, a = _route(xs, p["router"].to(dev), k)
+                gates, eidx, a = _route(xs, w["router"], k)
                 buf, meta = _sort_dispatch(xs, eidx, e,
                                            _capacity(xs.shape[0], k, e, cf))
             bufs.append(buf)
             metas.append(meta)
             gates_l.append(gates)
             auxs.append(a)
-        # (E, C, D) per shard -> (E/S, S·C, D) at each expert owner
-        owned = all_to_all(bufs, mesh, split_dim=0, concat_dim=1)
+        # (E, C, D) per shard -> (E/G, G·C, D) at each expert owner
+        owned = all_to_all(bufs, mesh, split_dim=0, concat_dim=1, axis=axis)
         outs = []
-        for r, dev in enumerate(devs):
+        for i, (s, w, dev) in enumerate(zip(mesh.present, ws, devs)):
+            r = mesh.coords(s)[axis]
             with on_device(dev):
-                outs.append(_expert_ffn(owned[r], *(
-                    torch.chunk(w[n], S)[r].to(dev) for n in w)))
-        back = all_to_all(outs, mesh, split_dim=1, concat_dim=0)
+                outs.append(_expert_ffn(owned[i], *(
+                    w[n] if w[n].shape[0] != e else torch.chunk(w[n], G)[r]
+                    for n in names)))
+        back = all_to_all(outs, mesh, split_dim=1, concat_dim=0, axis=axis)
         ys = []
-        for s, dev in enumerate(devs):
+        for i, dev in enumerate(devs):
             with on_device(dev):
-                ys.append(_combine(back[s], metas[s], gates_l[s],
-                                   toks[s].shape[0]))
-    aux = torch.stack([a.to(xt.device) for a in auxs]).mean()
-    y = (torch.cat([y.to(xt.device) for y in ys]) if split
-         else ys[0].to(xt.device))
-    return y, aux
+                ys.append(_combine(back[i], metas[i], gates_l[i],
+                                   toks[i].shape[0]))
+    # pmean: the shards' aux summed over the mesh, over the shard count
+    # (a share stands in for the absent shards with its own)
+    tot = all_reduce([a.reshape(1) for a in auxs], mesh)[0].reshape(())
+    return ys, tot / torch.tensor(float(len(mesh.present)), device=tot.device)
+
+
+def _moe_mesh(xt, p, k: int, cf: float, e: int, mesh: ShardMesh):
+    """The reference's ``shard_map`` over ``mesh`` (module docstring):
+    (T,D) tokens on the caller's device → ((T,D), aux)."""
+    t = xt.shape[0]
+    tax = token_axes(mesh, t)
+    n_tok = math.prod(mesh.shape[a] for a in tax)
+    chunks = torch.chunk(xt, n_tok) if tax else [xt]
+    toks, ws = [], []
+    for s in mesh.present:
+        dev = mesh.devices[s]
+        toks.append(chunks[mesh.index_on(s, tax)].to(dev))
+        ws.append({n: p[n].to(dev)
+                   for n in ("router", "w_in", "w_gate", "w_out")})
+    ys, aux = moe_shards(toks, ws, k, cf, e, mesh)
+    # every token block from the first shard that holds it
+    first = {}
+    for i, s in enumerate(mesh.present):
+        first.setdefault(mesh.index_on(s, tax), ys[i])
+    y = torch.cat([first[c].to(xt.device) for c in range(n_tok)])
+    return y, aux.to(xt.device)
 
 
 def moe_ffn(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
@@ -160,3 +212,15 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
         y, aux = _moe_mesh(xt, p, cfg.moe_top_k, cfg.capacity_factor, dm.e,
                            mesh)
     return y.reshape(b, s, d), aux
+
+
+def moe_ffn_shards(xs, ps, cfg: ArchConfig, dm: ModelDims, mesh: ShardMesh):
+    """``moe_ffn`` over a mesh's present shards, each with its own (B_i, S,
+    D) tokens ``xs[i]`` and weights ``ps[i]`` on its device (the sharded
+    train step's form).  Returns (the shards' outputs, the aux loss
+    averaged over the shards)."""
+    hs = [norm(x, p, cfg.norm).reshape(-1, x.shape[-1])
+          for x, p in zip(xs, ps)]
+    ys, aux = moe_shards(hs, ps, cfg.moe_top_k, cfg.capacity_factor, dm.e,
+                         mesh)
+    return [y.reshape(x.shape) for y, x in zip(ys, xs)], aux

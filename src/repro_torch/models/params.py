@@ -1,10 +1,11 @@
 """Parameter-spec system (the reference's ``repro.models.params``).
 
 A model is described by a flat ``{path: ParamSpec}`` dict produced once from
-the ``ArchConfig`` + ``ShardPlan``.  Shapes and initializers live in one
-place, so ``init_params`` and ``count_params`` can never drift apart, and
-the paths are the reference's: a tree of the port's parameters has the
-reference's keys, leaf for leaf.
+the ``ArchConfig`` + ``ShardPlan``.  Shapes, logical sharding axes and
+initializers live in one place, so ``init_params``, ``param_shapes`` (meta
+tensors, for the dry-run), ``logical_axes`` (the sharding tree) and
+``count_params`` can never drift apart, and the paths are the reference's:
+a tree of the port's parameters has the reference's keys, leaf for leaf.
 
 Paths are '/'-separated; a leading ``blocks`` component with logical axis
 ``layer`` on dim0 denotes group-stacked parameters (``Model`` loops over
@@ -326,6 +327,20 @@ def params_from_reference(flat, cfg: ArchConfig, device,
     if missing:
         raise KeyError(f"params_from_reference: missing {missing}")
     return unflatten(out)
+
+
+def param_shapes(cfg: ArchConfig, plan: ShardPlan) -> Dict:
+    """The parameter tree as meta tensors of the specs' shapes and dtypes:
+    no allocation (the dry-run's stand-ins)."""
+    return unflatten({p: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                     device="meta")
+                      for p, s in build_param_specs(cfg, plan).items()})
+
+
+def logical_axes(cfg: ArchConfig, plan: ShardPlan) -> Dict:
+    """The parameter tree's logical axis tuples, leaf for leaf."""
+    specs = build_param_specs(cfg, plan)
+    return unflatten({p: s.logical for p, s in specs.items()})
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:

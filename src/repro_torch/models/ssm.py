@@ -24,8 +24,12 @@ def _chunk(x: torch.Tensor, q: int) -> torch.Tensor:
     return x.reshape(b, s // q, q, *x.shape[2:])
 
 
-def ssd_chunked(x, dt, a, bm, cm, chunk: int = 128):
-    """Returns y:(B,S,H,P) and final state:(B,H,P,N). f32 math."""
+def ssd_chunked(x, dt, a, bm, cm, chunk: int = 128, dtype16: bool = False):
+    """Returns y:(B,S,H,P) and final state:(B,H,P,N). f32 math.
+    dtype16=True keeps the O(S·Q·H) intra-chunk decay / weight tensors
+    (``seg``, ``L``, ``C·Bᵀ`` and their product) in bf16, as the
+    reference's ``ssd_dtype="bfloat16"``; every sum stays f32 (bf16
+    products are exact in f32)."""
     b, s, h, p = x.shape
     n = bm.shape[-1]
     q = min(chunk, s)
@@ -33,20 +37,24 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int = 128):
     xb, dtb = _chunk(x, q), _chunk(dt, q)
     bb, cb = _chunk(bm, q), _chunk(cm, q)
     nc = s // q
+    wdt = torch.bfloat16 if dtype16 else torch.float32
 
     da = dtb * a                                        # (B,nc,Q,H)
     da_cs = torch.cumsum(da, dim=2)                     # (B,nc,Q,H)
 
     # ---- intra-chunk (diagonal blocks) ----
     # L[i,j] = exp(da_cs[i] - da_cs[j]) for i >= j else 0
-    seg = da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :]      # (B,nc,Q,Q,H)
+    seg = (da_cs[:, :, :, None, :].to(wdt)
+           - da_cs[:, :, None, :, :].to(wdt))                    # (B,nc,Q,Q,H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     # mask BEFORE exp: the i<j entries are large-positive and would overflow
     seg = torch.where(tri[None, None, :, :, None], seg, -torch.inf)
     l_mat = torch.exp(seg)
-    cb_bt = torch.einsum("bcin,bcjn->bcij", cb, bb)              # (B,nc,Q,Q)
-    w = cb_bt[..., None] * l_mat * dtb[:, :, None, :, :]
-    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w, xb)
+    cb_bt = torch.einsum("bcin,bcjn->bcij", cb.to(wdt).float(),
+                         bb.to(wdt).float()).to(wdt)             # (B,nc,Q,Q)
+    w = cb_bt[..., None] * l_mat * dtb[:, :, None, :, :].to(wdt)
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w.float(),
+                          xb.to(wdt).float())
 
     # ---- per-chunk final states ----
     decay_tail = torch.exp(da_cs[:, :, -1:, :] - da_cs)          # (B,nc,Q,H)
@@ -115,7 +123,8 @@ def mamba_train(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
     a = -torch.exp(p["a_log"])
     default_chunk = 256 if s >= 8192 else 128   # intra∝Q vs state-pass∝1/Q
     y, state = ssd_chunked(xi, dtf, a, bm, cm,
-                           chunk=opts.get("ssm_chunk", default_chunk))
+                           chunk=opts.get("ssm_chunk", default_chunk),
+                           dtype16=opts.get("ssd_dtype", "") == "bfloat16")
     y = y + xi * p["d_skip"][:, None]
     y = y.reshape(bsz, s, dm.d_inner).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["out_norm"])

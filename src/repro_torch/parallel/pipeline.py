@@ -10,7 +10,8 @@ current micro-batch and hands the activation to stage s + 1's device (the
 ``ppermute``).  The last stage records each finished micro-batch; they are
 returned stacked on the mesh's first device.  The hand-offs are
 ``Tensor.to``, so autograd runs back through them and the same schedule
-backpropagates.
+backpropagates.  Each tick's hand-off counts as one ``collective-permute``
+of the activation in an active ``CollectiveCounter``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.parallel.sharding import ShardMesh, on_device
+from repro_torch.parallel.sharding import (ShardMesh, count_collective,
+                                          on_device)
 from repro_torch.training.tree import tree_map
 
 
@@ -53,6 +55,9 @@ def gpipe(stage_fn: Callable, mesh: ShardMesh, axis: str, n_stages: int,
                     outs[t - s] = y.to(devs[0])
                 else:
                     nxt[s + 1] = y.to(devs[s + 1])
+            sent = next((y for y in nxt if y is not None), None)
+            if sent is not None:        # one stage shift per tick
+                count_collective("collective-permute", sent)
             inbound = nxt
         return torch.stack(outs)
 

@@ -50,12 +50,13 @@ are gathered onto the mesh's first device and merged there
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Set, Tuple
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.beam import beam_search_batch, rerank_pool
+from repro_torch.core.beam import (beam_search_batch, beam_search_hop,
+                                   rerank_pool)
 from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.ops import range_scan
 from repro_torch.kernels.quantize import (QuantizedCorpus, quantize_corpus,
@@ -612,20 +613,67 @@ class _Shard:
 
 def _shard_graph(sh: _Shard, qv, lo, hi, *, k: int, ef: int,
                  use_kernel: bool, beam_width: int = 1, quant=None,
-                 live=None):
+                 live=None, beam=beam_search_batch):
     """Per-shard graph body (the paper's mesh path): clip the global rank
     interval to this shard, one beam dispatch over the full batch, remap to
     original ids.  Returns ((Q, k) ids with -1 pads, (Q, k) dists with +inf
-    pads, this shard's summed ndist) on the shard's device."""
+    pads, this shard's summed ndist) on the shard's device.  ``beam``: the
+    search (the dry-run passes ``beam_search_hop``)."""
     slo, shi = resolve.clip_interval_torch(lo, hi, sh.rank0, sh.n)
     entry = resolve.select_entry(sh.rmq, sh.dist_c, slo, shi, sh.n)
-    ids, dists, st = beam_search_batch(sh.vecs, sh.nbrs, qv, slo, shi, entry,
-                                       k=k, ef=ef, use_kernel=use_kernel,
-                                       beam_width=beam_width, quant=quant,
-                                       live=live)
+    ids, dists, st = beam(sh.vecs, sh.nbrs, qv, slo, shi, entry,
+                          k=k, ef=ef, use_kernel=use_kernel,
+                          beam_width=beam_width, quant=quant, live=live)
     dists = torch.where(ids >= 0, dists, INF)
     return (resolve.remap_ids_torch(sh.order, ids), dists,
             st["ndist"].sum())
+
+
+def shard_operand_specs(per: int, d: int, m: int, precision: str = "f32"):
+    """The mesh path's operands of one shard of ``per`` rows, as meta
+    tensors derived from the index's parameters alone: (vecs (per, d) f32,
+    nbrs (per, m) int32, rmq (LOG, per) int32 with ``build_rmq``'s
+    floor(log2 per) + 1 levels, dist_c (per,) f32, order (per,) int32), and
+    the beam's quantized (data, scale): int8 rows with a (d,) f32 scale,
+    bf16 rows and no scale, None for f32."""
+    def f(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    ops = [f((per, d), torch.float32), f((per, m), torch.int32),
+           f((max(1, per.bit_length()), per), torch.int32),
+           f((per,), torch.float32), f((per,), torch.int32)]
+    if precision == "f32":
+        return ops, None
+    if precision == "int8":
+        return ops, (f((per, d), torch.int8), f((d,), torch.float32))
+    if precision == "bf16":
+        return ops, (f((per, d), torch.bfloat16), None)
+    raise ValueError(f"shard_operand_specs: unknown precision {precision!r}")
+
+
+def graph_share(mesh: ShardMesh, operands: Sequence[Tuple], qv, lo, hi, *,
+                k: int, ef: int, beam_width: int = 1, quants=None):
+    """The mesh path's graph dispatch (``MeshSubstrate._call_graph``) on the
+    present shards of ``mesh`` — one device's share on ``mesh.share(s)`` —
+    with the beam cut to one hop (``beam_search_hop``), so fake tensors run
+    it: each present shard's ``_shard_graph`` over its ``operands[i]`` =
+    (vecs, nbrs, rmq, dist_c, order), then the merge's gathers and
+    ``merge_topk`` on the device.  Returns the merged (Q, k) ids and
+    distances."""
+    quants = quants or [None] * len(operands)
+    pos = {s: i for i, s in enumerate(mesh.present)}
+
+    def body(s, dev):
+        i = pos[s]
+        per = operands[i][0].shape[0]
+        sh = _Shard(*operands[i], s * per, dev)
+        return _shard_graph(sh, qv, lo, hi, k=k, ef=ef,
+                            use_kernel=False, beam_width=beam_width,
+                            quant=quants[i], beam=beam_search_hop)
+    parts = shard_map(body, mesh)
+    ids_g = all_gather([p[0] for p in parts], mesh)          # (S, Q, k)
+    ds_g = all_gather([p[1] for p in parts], mesh)
+    all_gather([p[2] for p in parts], mesh)                  # (S,) ndist
+    return merge_topk(ids_g, ds_g, k)
 
 
 def _shard_planned(sh: _Shard, x_scan, scale_pad, scan_ops, beam_ops, *,

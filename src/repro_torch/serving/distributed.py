@@ -35,6 +35,7 @@ card) or all on ``device`` (the local path; default the card).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,10 +44,15 @@ import torch
 from repro_torch.core.construction import build_rnsg
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.obs.trace import maybe_span
-from repro_torch.parallel.sharding import ShardMesh, on_device
+from repro_torch.parallel.sharding import ShardMesh, make_mesh, on_device
 from repro_torch.search import (MeshSubstrate, SearchCache, SearchRequest,
                                 SearchResult, SearchSubstrate, clip_interval,
                                 merge_topk, rank_interval)
+from repro_torch.search.substrate import graph_share, shard_operand_specs
+
+_BUILD_DEFAULTS = {p.name: p.default for p in
+                   inspect.signature(build_rnsg).parameters.values()
+                   if p.default is not inspect.Parameter.empty}
 
 
 class DistributedRFANN:
@@ -76,6 +82,11 @@ class DistributedRFANN:
                         else (resolve_device(device),) * n_shards)
         self.n_shards = n_shards
         self.per = per
+        # the graph's row width: m, or the reverse edges' cap
+        kw = {**_BUILD_DEFAULTS, **build_kw}
+        self.dim = vs.shape[1]
+        self.degree = ((kw["reverse_cap"] or int(kw["m"] * 1.25))
+                       if kw["reverse_edges"] else kw["m"])
         self.attrs_sorted = as_       # global resolve happens over this
         graphs = []
         for s, dev in enumerate(self.devices):   # independently buildable
@@ -269,3 +280,48 @@ class DistributedRFANN:
                                 trace=trace, live=live,
                                 use_kernel=use_kernel)
         return res.ids, res.dists
+
+    # ------------------------------------------------------------------
+    def lower_for_dryrun(self, nq: int, d: int, k: int = 10, ef: int = 64,
+                         precision: str = "f32", beam_width: int = 1):
+        """The mesh path's per-shard graph body (``MeshSubstrate.
+        _call_graph``) run as one device's share on fake tensors (the
+        reference compiles the same program without running it), the
+        beam's hop loop counted once.  The fakes are derived from the
+        index's rows per shard, dimension, graph degree and ``precision``
+        alone (``search.substrate.shard_operand_specs``), not read off its
+        tensors.  Returns ``operands`` (the fakes: vectors, graph, RMQ
+        table, centroid distances, id map, then the quantized copy and its
+        scale), ``operand_bytes``, ``query_bytes``, ``gather_bytes`` (the
+        merge's all-gathers, per device), ``flops`` (the distance
+        arithmetic and products), ``collectives`` and ``temp_bytes``."""
+        from repro_torch.launch.hlo_analysis import count_program
+
+        share = make_mesh(self.n_shards, ["meta"]).share(0)
+        sizes = {}
+
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        def build():
+            ops, quant = shard_operand_specs(self.per, self.dim, self.degree,
+                                             precision)
+            q = (torch.empty((nq, d), dtype=torch.float32, device="meta"),
+                 torch.empty((nq,), dtype=torch.int32, device="meta"),
+                 torch.empty((nq,), dtype=torch.int32, device="meta"))
+            fakes = ops + [t for t in quant or () if t is not None]
+            sizes.update(operands=fakes, operand=nbytes(fakes),
+                         query=nbytes(q))
+            return (ops, quant, q), sizes["operand"] + sizes["query"]
+
+        def run(args):
+            sh, quant, (qv, lo, hi) = args
+            return graph_share(share, [sh], qv, lo, hi, k=k, ef=ef,
+                               beam_width=beam_width, quants=[quant])
+
+        c = count_program(build, run, elementwise=True)
+        return dict(operands=sizes["operands"], operand_bytes=sizes["operand"],
+                    query_bytes=sizes["query"],
+                    gather_bytes=c["collectives"]["all-gather"],
+                    flops=c["flops"], collectives=c["collectives"],
+                    temp_bytes=c["temp_bytes"], seconds=c["seconds"])

@@ -11,6 +11,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.models.params import DTYPES
 from repro_torch.training.optim import (adamw_init, adamw_update,
                                         clip_by_global_norm, cosine_schedule)
 from repro_torch.training.tree import leaves, tree_map, unflatten_like
@@ -19,6 +20,20 @@ from repro_torch.training.tree import leaves, tree_map, unflatten_like
 def init_train_state(model, generator: torch.Generator) -> Dict:
     params = model.init(generator)
     return {"params": params, "opt": adamw_init(params, model.cfg.opt_dtype)}
+
+
+def train_state_shapes(model) -> Dict:
+    """The train state as meta tensors (no allocation): the parameters'
+    shapes and dtypes, moments of the parameters' shapes in
+    ``cfg.opt_dtype``, and an int32 0-d ``step``."""
+    pshapes = model.param_shapes()
+    dt = DTYPES[model.cfg.opt_dtype]
+    mv = lambda: tree_map(lambda s: torch.empty(s.shape, dtype=dt,  # noqa: E731
+                                                device="meta"), pshapes)
+    return {"params": pshapes,
+            "opt": {"m": mv(), "v": mv(),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
 
 
 def build_train_step(model, *, lr_schedule: Optional[Callable] = None,

@@ -214,7 +214,7 @@ def test_route_ties_keep_the_lower_expert():
     assert eidx[0].tolist() == [3, 0, 1]
 
 
-def test_moe_ffn_refuses_a_mesh():
+def test_moe_ffn_runs_on_a_mesh():
     """``moe_ffn`` refuses no mesh: on a 2-shard CPU mesh it runs, and with
     no token dropped its output equals the local path's
     (``tests/test_torch_parallel_train.py`` holds the mesh paths in full)."""

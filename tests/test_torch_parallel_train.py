@@ -168,11 +168,15 @@ def test_moe_mesh_with_indivisible_tokens_equals_local():
         assert float((a - c).abs().max()) < 1e-4
 
 
-# The reference's ``moe_ffn`` on a (data 1, model S) mesh of forced host
+# The reference's ``moe_ffn`` on a (data D, model S) mesh of forced host
 # devices (as tests/test_multidevice.py runs it: XLA_FLAGS must be set
-# before jax is imported, so in a subprocess): EP at S = 2, 4, the
-# replicated-expert fallback at S = 3; no drops and a dropping capacity.
-REF_MOE_CASES = [(2, None), (4, None), (2, 0.5), (4, 0.5), (3, 0.5)]
+# before jax is imported, so in a subprocess): on (1, S) EP at S = 2, 4,
+# the replicated-expert fallback at S = 3, against the port's one-axis
+# mesh of S shards; on (4, 2) the tokens over both axes and EP within each
+# model group, against the port's two-axis mesh; no drops and a dropping
+# capacity.
+REF_MOE_CASES = [(1, 2, None), (1, 4, None), (1, 2, 0.5), (1, 4, 0.5),
+                 (1, 3, 0.5), (4, 2, None), (4, 2, 0.5)]
 _REF_MOE = """
     import dataclasses, sys
     import numpy as np, jax, jax.numpy as jnp
@@ -182,14 +186,14 @@ _REF_MOE = """
     from repro.models.params import ShardPlan, resolve_dims
     from repro.parallel.sharding import set_mesh_compat
     out = {}
-    for i, (S, cf) in enumerate(CASES):
+    for i, (D, S, cf) in enumerate(CASES):
         z = np.load(f"{sys.argv[1]}/in{i}.npz")
         cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
                                   dtype="float32")
         if cf is not None:
             cfg = dataclasses.replace(cfg, capacity_factor=cf)
         dm = resolve_dims(cfg, ShardPlan())
-        mesh = Mesh(np.array(jax.devices()[:S]).reshape(1, S),
+        mesh = Mesh(np.array(jax.devices()[:D * S]).reshape(D, S),
                     ("data", "model"))
         x = jnp.asarray(z["x"])
         p = {k: jnp.asarray(z[k]) for k in z.files if k != "x"}
@@ -211,13 +215,13 @@ def ref_moe_mesh(tmp_path_factory):
     """The reference's mesh outputs and gradients for ``REF_MOE_CASES``,
     on the inputs of ``_moe_case``."""
     d = tmp_path_factory.mktemp("ref_moe")
-    for i, (S, cf) in enumerate(REF_MOE_CASES):
+    for i, (_, _, cf) in enumerate(REF_MOE_CASES):
         _, _, p, x = _moe_case(cf=cf, b=6)
         np.savez(d / f"in{i}.npz", x=x.detach().numpy(),
                  **{k: v.detach().numpy() for k, v in p.items()})
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(root, "src"))
     code = f"CASES = {REF_MOE_CASES!r}\n" + textwrap.dedent(_REF_MOE)
     r = subprocess.run([sys.executable, "-c", code, str(d)], env=env,
@@ -228,15 +232,18 @@ def ref_moe_mesh(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", range(len(REF_MOE_CASES)),
-                         ids=[f"S{S}-cf{cf}" for S, cf in REF_MOE_CASES])
+                         ids=[f"S{S}-cf{cf}" if D == 1 else f"d{D}m{S}-cf{cf}"
+                              for D, S, cf in REF_MOE_CASES])
 def test_moe_mesh_matches_the_reference_mesh(case, ref_moe_mesh):
     """The port's mesh path against the reference's ``shard_map`` on the
     same inputs: y, aux (per-shard capacity, the dump row, the ``pmean``)
     and every gradient of sum(y^2) within 1e-4."""
-    S, cf = REF_MOE_CASES[case]
+    D, S, cf = REF_MOE_CASES[case]
     want = ref_moe_mesh[case]
     cfg, dm, p, x = _moe_case(cf=cf, b=6)
-    y, aux, grads = _run(cfg, dm, p, x, make_mesh(S, ["cpu"]))
+    mesh = (make_mesh(S, ["cpu"]) if D == 1 else
+            make_mesh({"data": D, "model": S}, ["cpu"]))
+    y, aux, grads = _run(cfg, dm, p, x, mesh)
     assert np.abs(y.numpy() - want["y"]).max() < 1e-4
     assert abs(float(aux) - float(want["aux"])) < 1e-4
     for k, g in zip(["x", *p], grads):
