@@ -20,7 +20,7 @@ Phases, each printing its lines:
    shape the bench phase's segment-tree build gives it (f32; timed at its
    top-level tile, (4096, 100000, 128)), with its bound and
    ``torch.cdist`` (TF32 off) as the library yardstick;
-4. exact   — n = 4096, d = 128: every strategy × beam width {1, 4} ×
+4. exact   — n = 2048, d = 128: every strategy × beam width {1, 4} ×
              use_kernel × precision {f32, int8, bf16} returns the
              brute-force ids at ef >= n;
 5. full    — a SIFT1M-shaped corpus (1M × 128, numpy from ``--seed``) built
@@ -169,7 +169,17 @@ Phases, each printing its lines:
              each of the ten archs' smoke configs on the card against the
              same port code on the CPU (f32 and bf16, prefill and 4 decode
              steps, logits and caches); the launcher's ``--mode lm`` in
-             process;
+             process.  The TP part: both models again under the TP
+             serving program (``parallel.tp``) on the same parameters, 8
+             shards on the card at (data 2, model 4), the same prefill and
+             fed tokens, each step against the unsharded run (llama3-8b
+             within relative L2 0.1; mamba2-780m's bf16 run reported, its
+             f32 twin at full depth within relative L2 1e-3, with a
+             planted split fault above that limit), per-device collective
+             bytes equal to the model dims' arithmetic; llama3-8b's f32
+             2-layer copy also at (data 1, model 8) and in a batch-1
+             decode with the KV sequence over ``data``, mamba2-780m's at
+             (2, 4), each within 1e-4 of max(1, |logit|);
 14. device times — range_scan's, gather_rerank's and l2dist's timed parity
              shapes again, one batch of the mesh phase's mesh and
              local async paths, one decode step of the lm phase's
@@ -778,7 +788,9 @@ def phase_exact(seed):
     from repro_torch.core.rfann import RNSGIndex
     from repro_torch.data.ann import (ground_truth, make_attrs, make_vectors,
                                       mixed_workload)
-    n, d, nq = 4096, 128, 32
+    # n cut from 4,096 to 2,048 to keep the whole run inside its limit
+    # with the lm phase's TP part (ef = n keeps the regime exact)
+    n, d, nq = 2048, 128, 32
     t0 = time.perf_counter()
     v = make_vectors(n + nq, d, seed=seed + 1)
     base, qv = v[:n], v[n:]
@@ -2273,6 +2285,21 @@ def phase_mesh(held, tmp: Path, ops, n_serve=100_000, nreq=1024, batch=64):
 #: of the decode logits from the longer prefill's
 LM_F32_ATOL = 1e-3
 LM_BF16_REL = 0.1
+#: the TP part's mesh: 8 shards of the one card, FSDP over data, Megatron
+#: over model
+LM_TP_AXES = {"data": 2, "model": 4}
+#: the TP program at full depth in f32 (mamba2-780m's 48 random SSM layers,
+#: whose bf16 run is itself 0.37-0.44 from its f32 twin): each step's
+#: relative L2 from the unsharded f32 run.  The sound program reads about
+#: 9.2e-05 there (f32 rounding through 48 layers), and a planted split
+#: fault (``_out_local``) must read above the limit
+LM_TP_F32_REL = 1e-3
+#: the TP part's rules: the metric each step's logits are held to against
+#: the unsharded run's, and its limit ("reported": held to nothing)
+LM_TP_RULES = {"bf16": ("rel_l2", LM_BF16_REL),
+               "f32": ("max_abs_scaled", 1e-4),
+               "f32 full depth": ("rel_l2", LM_TP_F32_REL),
+               "reported": (None, None)}
 
 
 def _rel(a, b) -> float:
@@ -2284,14 +2311,22 @@ def _host(t) -> np.ndarray:
     return t.float().cpu().numpy().copy()
 
 
-def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
+def _lm_full(label, cfg, seed, batch, seq, steps, probe=False, tp=(),
+             long_len=0, f32_twin=False):
     """One model on the card: parameters drawn there from ``seed``, a
     warm-up and a timed prefill of batch × seq tokens, ``steps`` greedy
     decode steps, then the prefill of seq + 1 tokens against the first
     decode step's logits.  Prints each number beside its bound.  With
     ``probe``, queues a device-time reading of one decode step (its own
     cache, made at the reading) for the last phase; the model stays on the
-    card until then."""
+    card until then.  ``tp``: mesh axes on which the TP program
+    (``_lm_tp``) runs the same prefill and fed tokens on these parameters;
+    ``long_len``: also a batch-1 decode with the KV sequence over the first
+    mesh's ``data`` ranks in a cache of that length (``_lm_tp_long``);
+    ``f32_twin``: the run's f32 twin, unsharded and under the TP program on
+    ``tp[0]`` (``_lm_tp_f32``), holds the split at full depth, and the
+    bf16 TP runs are reported, not held (their distance is the model's
+    bf16 noise)."""
     import torch
     from repro_torch.launch.specs import concrete_batch
     from repro_torch.models.lm import Model
@@ -2335,6 +2370,7 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         toks = [torch.argmax(logits[:, :V], -1).int()]
+        step_logits = [logits]
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
         t0 = time.perf_counter()
         evs[0].record()
@@ -2342,6 +2378,7 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
             lg, cache = model.decode(params, cache, seq + i, toks[-1])
             if i == 0:
                 l_dec = lg
+            step_logits.append(lg)
             toks.append(torch.argmax(lg[:, :V], -1).int())
             evs[i + 1].record()
         torch.cuda.synchronize()
@@ -2414,8 +2451,312 @@ def _lm_full(label, cfg, seed, batch, seq, steps, probe=False):
     if not ok:
         raise AssertionError(f"[lm] {label}: prefill and decode disagree "
                              f"(relative L2 {rel:.3e}, max abs {err:.3e})")
-    del params, logits, lg, l_dec, l_full, b, model
+    del lg, l_dec, l_full
+    rec["tp"] = {"x".join(f"{k}{v}" for k, v in axes.items()): _lm_tp(
+        label, model, params, b, toks[:steps], step_logits, axes,
+        probe and i == 0, "reported" if f32_twin else None)
+        for i, axes in enumerate(tp)}
+    if f32_twin:
+        rec["tp_f32"] = _lm_tp_f32(label, model, params, b, toks[:steps],
+                                   step_logits, tp[0])
+    del step_logits
+    if long_len:
+        rec["tp_long"] = _lm_tp_long(label, model, params, tp[0], long_len,
+                                     seed)
+    del params, logits, b, model
     torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_program(cfg, axes, long_context=False):
+    """The TP serving program of ``cfg`` on mesh ``axes``, every shard on
+    the one card, under ``DEFAULT_RULES`` with the plan that pads for the
+    mesh; its padded dims must equal the unpadded model's (the same
+    parameters serve both)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import ShardPlan, resolve_dims
+    from repro_torch.parallel.sharding import (DEFAULT_RULES,
+                                               make_act_sharder, make_mesh)
+    from repro_torch.parallel.tp import TPServe
+    plan = ShardPlan(tp=axes["model"], fsdp=axes["data"])
+    if resolve_dims(cfg, plan) != resolve_dims(cfg, ShardPlan()):
+        raise AssertionError(f"[lm] TP {axes}: the plan pads {cfg.name}")
+    mesh = make_mesh(axes, ["cuda"])
+    return TPServe(Model(cfg, plan, mesh=mesh, device="cuda",
+                         act_shard=make_act_sharder(mesh, DEFAULT_RULES)),
+                   long_context=long_context)
+
+
+def _tp_arith(cfg, axes, batch: int) -> dict:
+    """Per-device bytes of one TP decode step of a dense (SwiGLU, no
+    biases) or SSM model on ``axes`` (data D × model M), from the model's
+    dims alone.  All-gathers: over ``data``, each layer's weight blocks
+    (the d / D rows of each column-parallel weight's local columns and the
+    d / D columns of each row-parallel one's local rows), the embedding's
+    and the head's (V / M, d / D) blocks (a tied table twice, for the
+    lookup and the head); over ``model``, the SSM's ``w_in`` (its (d, in /
+    M) operand once the data gather made d whole), ``conv_w`` and
+    ``conv_b``, the conv tail ((B, W - 1, conv_dim / M)) and the logits
+    ((B, V / M) f32).  All-reduces over ``model``: the embedding's and each
+    sublayer's row-parallel output ((B, 1, d) each) and, per SSM layer,
+    the output norm's squared sums ((B, 1, 1) f32).  The batch is whole on
+    every shard: ``DEFAULT_RULES`` splits it over ``(pod, data)``, and the
+    mesh has no pod."""
+    from repro_torch.models.params import ShardPlan, resolve_dims
+    D, M = axes["data"], axes["model"]
+    dm = resolve_dims(cfg, ShardPlan(tp=M, fsdp=D))
+    es = 2 if cfg.dtype == "bfloat16" else 4
+    d, V, L, B = dm.d, dm.vocab, cfg.n_layers, batch
+    if cfg.family == "dense" and not cfg.qkv_bias and \
+            cfg.mlp_act == "swiglu":
+        # wq, wo, wk, wv, w_in, w_gate, w_out
+        cols = [dm.h * dm.hd] * 2 + [dm.kh * dm.hd] * 2 + [dm.f] * 3
+        whole, tails, rows = [], 0, 2 * L
+    elif cfg.family == "ssm":
+        di, cd, W = dm.d_inner, dm.conv_dim, dm.conv_w
+        n_in = 2 * di + 2 * dm.ssm_n + dm.ssm_h
+        cols = [n_in, di]                                    # w_in, w_out
+        whole = [d * n_in, W * cd, cd]               # w_in, conv_w, conv_b
+        tails, rows = B * (W - 1) * cd, L
+    else:
+        raise ValueError(f"_tp_arith: {cfg.name}")
+    if d % D or any(c % M for c in cols + whole + [V]):
+        raise ValueError(f"_tp_arith: {cfg.name} does not divide {axes}")
+    per_layer = sum(cols) // M * (d // D) * (D > 1) \
+        + sum(whole) // M * (M > 1)
+    ag = (L * per_layer + 2 * V // M * (d // D) * (D > 1)) * es \
+        + (L * tails // M * es + B * V // M * 4) * (M > 1)
+    ar = ((1 + rows) * B * d * es
+          + (L * B * 4 if cfg.family == "ssm" else 0)) * (M > 1)
+    return {"all-reduce": ar, "all-gather": ag}
+
+
+def _out_local(self, gs, ps):
+    """A planted split fault for ``_lm_tp_f32``: the TP program's SSM
+    output norm over each shard's own columns (its squared sums not
+    all-reduced), in place of ``parallel.tp._Hooks._out``."""
+    from repro_torch.models.ssm import rmsnorm
+    ys = self.each(lambda i, g, p: rmsnorm(g, p["out_norm"]), gs, ps)
+    return self.each(lambda i, y, p: y @ p["w_out"], ys, ps)
+
+
+def _lm_tp_f32(label, model, params, b, toks, bf16_logits, axes):
+    """The f32 twin of a bf16 run on the card (the same parameters upcast,
+    the same prefill and fed tokens), unsharded, then under the TP program
+    on ``axes`` (``_lm_tp``, rule "f32 full depth": each step within
+    relative L2 ``LM_TP_F32_REL`` of the unsharded f32 run).  Reports the
+    bf16 run's distance from its twin, and holds a planted split fault
+    (``_out_local``, the prefill alone) above the limit."""
+    import dataclasses
+    from unittest import mock
+    import torch
+    from repro_torch.models.lm import Model
+    from repro_torch.parallel import tp as tp_mod
+    from repro_torch.training.tree import tree_map
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    V = cfg.vocab_size
+    m32 = Model(cfg, model.plan, device=model.device)
+    p32 = tree_map(lambda t: t.float(), params)
+    S = b["tokens"].shape[1]
+    with torch.inference_mode():
+        cache, logits = m32.prefill(p32, b, S + len(toks))
+        ref = [logits]
+        for i, t in enumerate(toks):
+            logits, cache = m32.decode(p32, cache, S + i, t)
+            ref.append(logits)
+    del cache
+    own = [_rel(_host(w[:, :V]), _host(f[:, :V]))
+           for w, f in zip(bf16_logits, ref)]
+    print(f"[lm] {label}: the bf16 run against its f32 twin (the same "
+          f"parameters and fed tokens in f32) over the prefill and "
+          f"{len(toks)} steps: relative L2 {min(own):.3e}-{max(own):.3e}")
+    rec = _lm_tp(f"{label} f32 twin", m32, p32, b, toks, ref, axes,
+                 rule="f32 full depth")
+    rec["bf16_vs_f32_rel"] = own
+    prog = _tp_program(cfg, axes)
+    shards = prog.shard_params(p32)
+    with torch.inference_mode(), mock.patch.object(tp_mod._Hooks, "_out",
+                                                   _out_local):
+        _, got = prog.prefill(shards, b, S + 1)
+    rec["fault_rel_l2"] = fault = _rel(_host(got[:, :V]), _host(ref[0][:, :V]))
+    del shards, got, ref, p32, m32
+    torch.cuda.empty_cache()
+    print(f"[lm] {label} f32 twin TP: a planted split fault (the SSM output "
+          f"norm over each shard's own columns) reads relative L2 "
+          f"{fault:.3e} on the prefill (limit {LM_TP_F32_REL}, the sound "
+          f"program {max(rec['rel_l2']):.3e})")
+    if not fault > LM_TP_F32_REL:
+        raise AssertionError(f"[lm] {label}: the full-depth f32 check does "
+                             f"not see a split fault ({fault:.3e})")
+    return rec
+
+
+def _lm_tp(label, model, params, b, toks, ref_logits, axes, probe=False,
+           rule=None):
+    """The TP program on ``axes`` (every shard on the one card) against the
+    unsharded run of ``_lm_full``: the parameters split from its tree, the
+    same prefill, then one decode step per fed token (its greedy tokens).
+    Each step's logits against the unsharded run's by ``rule`` (a key of
+    ``LM_TP_RULES``; by default the dtype's: relative L2 ``LM_BF16_REL``
+    in bf16, 1e-4·max(1, max |logit|) absolute in f32), and the argmax
+    agreement; prefill ms (host clock around the synchronised call, after
+    a warm-up one), ms per decode step (CUDA events), peak memory, and
+    per-device collective bytes of the prefill and of one decode step,
+    which must equal ``_tp_arith``'s.  With ``probe``, queues a
+    device-time reading of one decode step (launches per step) for the
+    last phase."""
+    import torch
+    from repro_torch.parallel.sharding import CollectiveCounter
+    from repro_torch.training.tree import leaves
+    cfg = model.cfg
+    V = cfg.vocab_size
+    name = "x".join(f"{k}{v}" for k, v in axes.items())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog = _tp_program(cfg, axes)
+    shards = prog.shard_params(params)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    blocks = sum(t.numel() * t.element_size() for t in leaves(shards))
+    torch.cuda.reset_peak_memory_stats()
+    B, S = b["tokens"].shape
+    L = S + len(toks)
+    with torch.inference_mode():
+        prog.prefill(shards, b, L)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCounter() as cc_pre:
+            caches, logits = prog.prefill(shards, b, L)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs = [logits]
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(len(toks) + 1)]
+        t0 = time.perf_counter()
+        evs[0].record()
+        for i, t in enumerate(toks):
+            if i == 0:
+                with CollectiveCounter() as cc_dec:
+                    lg, caches = prog.decode(shards, caches, S + i, t)
+            else:
+                lg, caches = prog.decode(shards, caches, S + i, t)
+            outs.append(lg)
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(toks))]
+    rels, errs, agree = [], [], []
+    for got, want in zip(outs, ref_logits):
+        g, w = _host(got[:, :V]), _host(want[:, :V])
+        rels.append(_rel(g, w))
+        errs.append(float(np.max(np.abs(g - w)))
+                    / max(1.0, float(np.max(np.abs(w)))))
+        agree.append(float(np.mean(g.argmax(-1) == w.argmax(-1))))
+    rule = rule or ("bf16" if cfg.dtype == "bfloat16" else "f32")
+    metric, limit = LM_TP_RULES[rule]
+    ok = all(np.isfinite(r) for r in rels) and (
+        metric is None
+        or max(rels if metric == "rel_l2" else errs) <= limit)
+    arith = _tp_arith(cfg, axes, B)
+    rec = dict(axes=axes, shard_s=shard_s, block_bytes=blocks,
+               prefill_ms=prefill_ms, decode_ms_per_step=decode_s * 1e3
+               / len(toks), decode_step_ms=step_ms, peak_bytes=peak,
+               rel_l2=rels, max_abs_scaled=errs, argmax_agree=agree,
+               rule=rule, limit=limit,
+               prefill_collectives=cc_pre.as_dict(),
+               decode_collectives=cc_dec.as_dict(),
+               decode_calls=dict(cc_dec.calls), decode_arith=arith, ok=ok)
+    print(f"[lm] {label} TP {name}: blocks {blocks / 1e9:.3f} GB placed in "
+          f"{shard_s:.2f} s; prefill {B} x {S} {prefill_ms:.2f} ms; decode "
+          f"{rec['decode_ms_per_step']:.3f} ms per step (median event "
+          f"{float(np.median(step_ms)):.3f}); peak {peak / 1e9:.3f} GB")
+    print(f"[lm] {label} TP {name}: per device, one decode step: "
+          f"all-reduce {cc_dec.bytes['all-reduce']:,} B (from the dims "
+          f"{arith['all-reduce']:,}), all-gather "
+          f"{cc_dec.bytes['all-gather']:,} B (from the dims "
+          f"{arith['all-gather']:,}); the prefill: all-reduce "
+          f"{cc_pre.bytes['all-reduce']:,} B, all-gather "
+          f"{cc_pre.bytes['all-gather']:,} B")
+    print(f"[lm] {label} TP {name}: against the unsharded run over the "
+          f"prefill and {len(toks)} steps: relative L2 up to {max(rels):.3e}, "
+          f"max abs {max(errs):.3e} of max(1, |logit|), argmax agreement "
+          f"{min(agree):.4f}-{max(agree):.4f} ("
+          + (f"limit {limit} on {metric})" if metric else
+             "reported, not held: the f32 twin holds the split)"))
+    if cc_dec.bytes["all-reduce"] != arith["all-reduce"] or \
+            cc_dec.bytes["all-gather"] != arith["all-gather"]:
+        raise AssertionError(f"[lm] {label} TP {name}: counted bytes differ "
+                             f"from the model dims' arithmetic")
+    if not ok:
+        raise AssertionError(f"[lm] {label} TP {name}: TP and unsharded "
+                             f"runs disagree (relative L2 {max(rels):.3e}, "
+                             f"scaled max abs {max(errs):.3e})")
+    if probe:
+        state, tok = {}, toks[0]
+
+        def step(model=model, params=params, b=b, axes=axes):
+            with torch.inference_mode():
+                if not state:
+                    p = state["prog"] = _tp_program(model.cfg, axes)
+                    state["shards"] = p.shard_params(params)
+                    state["caches"] = p.prefill(state["shards"], b, S + 1)[0]
+                state["prog"].decode(state["shards"], state["caches"], S,
+                                     tok)
+
+        rec["probe"] = dict(wall_ms=rec["decode_ms_per_step"])
+        _device_probe(rec["probe"], step, f"lm {label} TP {name}: one decode "
+                      f"step", 1)
+    del shards, caches, outs, logits, lg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_tp_long(label, model, params, axes, L, seed, steps=3):
+    """A batch-1 decode with the KV sequence over ``data`` (``cache_logical
+    (long_context=True)``) in a cache of ``L`` positions: the prefill of
+    L/2 - 2 tokens, then ``steps`` greedy decode steps, the last ones past
+    the first rank's half; against the unsharded model on the same tokens
+    within 1e-4·max(1, max |logit|)."""
+    import torch
+    cfg = model.cfg
+    V = cfg.vocab_size
+    S = L // 2 - 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = {"tokens": torch.randint(0, V, (1, S), generator=g, device="cuda",
+                                 dtype=torch.int32)}
+    prog = _tp_program(cfg, axes, long_context=True)
+    if prog.kv_axes(1) != ("data",):
+        raise AssertionError(f"[lm] {label}: the KV sequence is not split")
+    shards = prog.shard_params(params)
+    errs = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache, want = model.prefill(params, b, L)
+        caches, got = prog.prefill(shards, b, L)
+        for i in range(steps + 1):
+            w = _host(want[:, :V])
+            errs.append(float(np.max(np.abs(_host(got[:, :V]) - w)))
+                        / max(1.0, float(np.max(np.abs(w)))))
+            if i == steps:
+                break
+            t = torch.argmax(want[:, :V], -1).int()
+            want, cache = model.decode(params, cache, S + i, t)
+            got, caches = prog.decode(shards, caches, S + i, t)
+    torch.cuda.synchronize()
+    n = caches[0]["k"].shape[2]
+    rec = dict(axes=axes, cache_len=L, prefill=S, steps=steps,
+               local_positions=n, max_abs_scaled=errs,
+               wall_s=time.perf_counter() - t0, ok=max(errs) <= 1e-4)
+    print(f"[lm] {label} TP long context {axes}: batch 1, cache {L} ({n} "
+          f"positions per data rank), prefill {S} and {steps} steps across "
+          f"position {n}: max abs {max(errs):.3e} of max(1, |logit|) (limit "
+          f"1e-4)")
+    del shards, caches, cache
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise AssertionError(f"[lm] {label}: the sequence-sharded decode "
+                             f"disagrees ({max(errs):.3e})")
     return rec
 
 
@@ -2543,7 +2884,13 @@ def phase_lm(seed, out: Path):
     and depth and mamba2-780m at full size (prefill 64 x 32, 16 greedy
     decode steps, prefill against decode), llama3-8b's f32 copy cut to 2
     layers (prefill against decode within 1e-3), the witness, every arch's
-    smoke config against the CPU, and the launcher's lm mode in process."""
+    smoke config against the CPU, and the launcher's lm mode in process.
+    The TP part: each again under the TP program on the same parameters, 8
+    shards on the card (``LM_TP_AXES``; llama3-8b's f32 copy also at (data
+    1, model 8) and in a sequence-sharded batch-1 decode; mamba2-780m's
+    bf16 TP run reported, and the split held by its f32 twin at full depth
+    within ``LM_TP_F32_REL`` and by its f32 copy cut to 2 layers at full
+    width within 1e-4)."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_config, list_archs
@@ -2552,13 +2899,19 @@ def phase_lm(seed, out: Path):
     rec = {}
     llama = get_config("llama3-8b")
     rec["llama3-8b"] = _lm_full("llama3-8b", llama, seed, 64, 32, 16,
-                                probe=True)
+                                probe=True, tp=(LM_TP_AXES,))
     rec["llama3-8b_f32_2layers"] = _lm_full(
         "llama3-8b f32, 2 layers",
         dataclasses.replace(llama, n_layers=2, dtype="float32"), seed, 64,
-        32, 2)
-    rec["mamba2-780m"] = _lm_full("mamba2-780m", get_config("mamba2-780m"),
-                                  seed, 64, 32, 16, probe=True)
+        32, 2, tp=(LM_TP_AXES, {"data": 1, "model": 8}), long_len=8192)
+    mamba = get_config("mamba2-780m")
+    rec["mamba2-780m"] = _lm_full("mamba2-780m", mamba, seed, 64, 32, 16,
+                                  probe=True, tp=(LM_TP_AXES,),
+                                  f32_twin=True)
+    rec["mamba2-780m_f32_2layers"] = _lm_full(
+        "mamba2-780m f32, 2 layers",
+        dataclasses.replace(mamba, n_layers=2, dtype="float32"), seed, 64,
+        32, 2, tp=(LM_TP_AXES,))
     rec["witness"] = _lm_witness(seed, out)
     rec["smoke"] = {arch: _lm_smoke(arch, seed) for arch in list_archs()}
     t0 = time.perf_counter()
@@ -3441,12 +3794,14 @@ def main() -> int:
               f"{p['launches_per_call']:g} device launches: idle share "
               f"{p['idle_share']:.3f}")
     for name in ("llama3-8b", "mamba2-780m"):
-        p = lm[name]["probe"]
-        p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
-        print(f"[lm] {name}: one decode step {p['wall_ms']:.3f} ms of wall "
-              f"(the 16 steps' mean), {p['device_ms']:.3f} ms of device "
-              f"time, {p['launches_per_call']:g} device launches: idle share "
-              f"{p['idle_share']:.3f}")
+        tp = next(iter(lm[name]["tp"]))
+        for label, p in ((name, lm[name]["probe"]),
+                         (f"{name} TP {tp}", lm[name]["tp"][tp]["probe"])):
+            p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
+            print(f"[lm] {label}: one decode step {p['wall_ms']:.3f} ms of "
+                  f"wall (the 16 steps' mean), {p['device_ms']:.3f} ms of "
+                  f"device time, {p['launches_per_call']:g} device launches: "
+                  f"idle share {p['idle_share']:.3f}")
 
     main_rs = next(r for r in rs if r["bucket"] == 8192)
     la = full["launches"]

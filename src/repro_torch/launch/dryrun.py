@@ -13,13 +13,14 @@ its step (``ShardMesh.share``) under ``FakeTensorMode``, its products
 counted by ``FlopCounterMode`` and its collectives' per-device operand
 bytes by a ``CollectiveCounter`` (``launch.hlo_analysis``); the collectives
 stand in for the other shards.  Train cells run the FSDP strategy's
-sharded step (``parallel.fsdp``), ``replica`` variants the replica rules.
-Cells whose strategy is tensor parallelism (base prefill and decode) have
-no program in the port yet: their records hold the spec-derived fields
-(``meta``, per-device parameter bytes, ``analytic_memory``,
-``model_flops``) and ``"pending": "tensor-parallel program"``, and no
-counted field.  The multi-pod pass places and sizes every cell without
-counting it (the reference's production-only pass).
+sharded step (``parallel.fsdp``); prefill and decode cells the TP
+strategy's serving program (``parallel.tp``: Megatron heads and ``d_ff``
+over ``model``, weights FSDP over ``data``, the vocab-parallel head, a
+long-context cache's KV sequence over ``data``), a prefill's attention in
+the reference's analysis tiles (q and kv chunks of max(1024, seq / 8));
+``replica`` variants the replica rules' unsharded serving.  The multi-pod
+pass places and sizes every cell without counting it (the reference's
+production-only pass).
 
 Eager counting sees every layer and every recompute, so cells are counted
 at full depth (the reference extrapolates from two depths because XLA
@@ -50,17 +51,18 @@ from repro_torch.launch.specs import input_specs
 from repro_torch.models.lm import Model
 from repro_torch.models.params import (DTYPES, ShardPlan, build_param_specs,
                                        logical_axes)
-from repro_torch.parallel.fsdp import StateLayout, build_sharded_train_step
+from repro_torch.parallel.fsdp import (StateLayout, TreeLayout,
+                                       build_sharded_train_step)
 from repro_torch.parallel.sharding import (STRATEGIES, batch_logical,
                                            block_slices, local_shape,
                                            make_act_sharder, make_mesh,
                                            spec_for_logical)
+from repro_torch.parallel.tp import TPServe
 from repro_torch.search.substrate import graph_share, shard_operand_specs
 from repro_torch.training.train_step import train_state_shapes
 from repro_torch.training.tree import leaves
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-PENDING_TP = "tensor-parallel program"
 
 VARIANTS = {
     # §Perf hillclimb variants: cfg field overrides + Model opts overrides
@@ -117,7 +119,8 @@ def _param_bytes(cfg, plan, mesh, rules) -> int:
 class Cell:
     """One cell, ready to count: its config, shape, strategy and plan, the
     spec-derived per-device parameter bytes, and ``build`` / ``run`` for
-    ``count_program`` (None when the strategy's program is pending)."""
+    ``count_program`` (the FSDP train step's share, or the TP or replica
+    serving program's)."""
     cfg: object
     shape: object
     strategy: str
@@ -126,7 +129,6 @@ class Cell:
     param_bytes: int
     build: object = None
     run: object = None
-    pending: str = ""
 
 
 def _share_batch(batch, cfg, kind, mesh, rules):
@@ -166,17 +168,6 @@ def train_share(cfg, mesh, batch_shape, rules, plan=ShardPlan(), opts=None):
     return build, run
 
 
-def _blocks(logical, shapes, mesh, rules):
-    """One device's blocks of a tree of meta tensors, as meta tensors."""
-    if isinstance(logical, dict):
-        return {k: _blocks(v, shapes[k], mesh, rules)
-                for k, v in logical.items()}
-    shp = tuple(shapes.shape)
-    return torch.empty(local_shape(shp, spec_for_logical(logical, shp, mesh,
-                                                         rules), mesh),
-                       dtype=shapes.dtype, device="meta")
-
-
 def _serve_share(cfg, shape, mesh, rules, plan, opts):
     """``build`` / ``run``: shard 0's share of a replica-rules prefill or
     decode (replicated weights, the batch split by its spec)."""
@@ -184,8 +175,8 @@ def _serve_share(cfg, shape, mesh, rules, plan, opts):
 
     def build():
         model = Model(cfg, plan, mesh=None, opts=opts, device="meta")
-        params = _blocks(logical_axes(cfg, plan), model.param_shapes(),
-                         share, rules)
+        params = TreeLayout(logical_axes(cfg, plan), model.param_shapes(),
+                            share, rules).shard_tree(model.param_shapes())[0]
         local = _share_batch(input_specs(cfg, shape), cfg, shape.kind, share,
                              rules)
         nbytes = sum(t.numel() * t.element_size()
@@ -204,6 +195,40 @@ def _serve_share(cfg, shape, mesh, rules, plan, opts):
                 return model.prefill(params, local, cache_len=shape.seq_len)[1]
             return model.decode(params, cache, shape.seq_len - 1,
                                 local["token"])[0]
+
+    return build, run
+
+
+def _tp_share(cfg, shape, mesh, rules, plan, opts):
+    """``build`` / ``run``: shard 0's share of the TP strategy's prefill or
+    decode (``parallel.tp.TPServe``) at the cell's global batch; a decode
+    writes position seq - 1 of a cache of seq positions."""
+    share = mesh.share(0)
+
+    def build():
+        model = Model(cfg, plan, mesh=share,
+                      act_shard=make_act_sharder(share, rules), opts=opts,
+                      device="meta")
+        prog = TPServe(model, rules, long_context=shape.long_context)
+        params = prog.shard_params(model.param_shapes())[0]
+        batch = input_specs(cfg, shape)
+        local = _share_batch(batch, cfg, shape.kind, share, rules)
+        caches = None
+        held = leaves(params) + list(local.values())
+        if shape.kind == "decode":
+            b = shape.global_batch
+            caches = prog.cache_layout(b, shape.seq_len).shard_tree(
+                model.init_cache(b, shape.seq_len, "meta"))
+            held += list(caches[0].values())
+        return (prog, params, batch, caches), sum(
+            t.numel() * t.element_size() for t in held)
+
+    def run(args):
+        prog, params, batch, caches = args
+        if shape.kind == "prefill":
+            return prog.prefill([params], batch, cache_len=shape.seq_len)[1]
+        return prog.decode([params], caches, shape.seq_len - 1,
+                           batch["token"])[0]
 
     return build, run
 
@@ -231,7 +256,10 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str = "base",
     cell = Cell(cfg, shape, strategy, plan, meta,
                 _param_bytes(cfg, plan, mesh, rules))
     if strategy == "tp":
-        cell.pending = PENDING_TP
+        if shape.kind == "prefill":      # the reference's analysis tiles
+            for k in ("q_chunk", "kv_chunk"):
+                opts.setdefault(k, max(1024, shape.seq_len // 8))
+        cell.build, cell.run = _tp_share(cfg, shape, mesh, rules, plan, opts)
     elif shape.kind == "train":
         cell.build, cell.run = train_share(
             cfg, mesh, (shape.global_batch, shape.seq_len), rules, plan, opts)
@@ -334,15 +362,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base",
                variant=variant, meta=cell.meta, lower_s=t_lower,
                memory=dict(argument_bytes=cell.param_bytes),
                analytic_memory=am, model_flops=mf)
-    if cell.pending or not analysis:
-        if cell.pending:
-            rec["pending"] = cell.pending
+    if not analysis:
         write(rec)
         if verbose:
-            print(f"[dryrun] {tag}: "
-                  + (f"pending ({cell.pending})" if cell.pending else
-                     "placed (not counted)")
-                  + f"; params {cell.param_bytes/2**30:.2f}GiB/dev")
+            print(f"[dryrun] {tag}: placed (not counted); params "
+                  f"{cell.param_bytes/2**30:.2f}GiB/dev")
         return rec
     c = count_program(cell.build, cell.run)
     flops_dev = c["flops"]
@@ -447,27 +471,32 @@ def main(argv=None):
         k, n = map(int, args.jobs.split("/"))
         todo = [t for i, t in enumerate(todo) if i % n == k]
 
-    failures, pending = [], 0
+    failures, kinds = [], {}
+    t0 = time.perf_counter()
     for arch, shape, mp in todo:
         mesh_name = "pod2x16x16" if mp else "pod16x16"
         tag = _tag(arch, shape, mesh_name, args.variant)
         out_path = args.results / f"{tag}.json"
         if out_path.exists() and not args.force:
             print(f"[dryrun] {tag}: cached")
-            pending += "pending" in json.loads(out_path.read_text())
-            continue
-        try:
-            rec = run_cell(arch, shape, mp, args.variant,
-                           analysis=not args.no_analysis and not mp,
-                           smoke=args.smoke, results=args.results)
-            pending += "pending" in rec
-        except Exception:
-            failures.append(tag)
-            print(f"[dryrun] {tag}: FAILED")
-            traceback.print_exc()
+            rec = json.loads(out_path.read_text())
+        else:
+            try:
+                rec = run_cell(arch, shape, mp, args.variant,
+                               analysis=not args.no_analysis and not mp,
+                               smoke=args.smoke, results=args.results)
+            except Exception:
+                failures.append(tag)
+                print(f"[dryrun] {tag}: FAILED")
+                traceback.print_exc()
+                continue
+        kind = ("skipped" if "skipped" in rec else "placed" if "cost" not in
+                rec else f"{rec['meta']['kind']} counted")
+        kinds[kind] = kinds.get(kind, 0) + 1
     if args.all:
-        print(f"[dryrun] {pending} of {len(todo)} cells pending "
-              f"({PENDING_TP})")
+        print(f"[dryrun] {len(todo)} cells in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items())))
     if failures:
         print("FAILURES:", failures)
         raise SystemExit(1)

@@ -108,7 +108,7 @@ def roofline_table(variant: str = "base", results: Path = RESULTS) -> str:
                 '✗ (' + format(am['total'] / 2**30, '.0f') + 'G)')
         if "roofline" not in r:
             lines.append(f"| {arch} | {sname} | — | — | — | "
-                         f"{r.get('pending', 'not counted')} | "
+                         f"not counted | "
                          f"{r['model_flops']:.2e} | — | — | {fits} |")
             continue
         t = r["roofline"]
@@ -132,7 +132,7 @@ def dryrun_table(results: Path = RESULTS) -> str:
                          f"| skipped | — |")
             continue
         c1 = (f"{r1['compile_s']:.1f}s ✓" if "compile_s" in r1
-              else r1.get("pending", "—"))
+              else "—")
         c2 = f"{r2['lower_s']:.1f}s ✓" if r2 and "skipped" not in r2 else "—"
         coll = (f"{r1['collectives']['total'] / 2**20:,.0f}"
                 if "collectives" in r1 else "—")

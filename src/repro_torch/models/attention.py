@@ -207,3 +207,15 @@ def cross_attn(x, memory_kv, p, cfg: ArchConfig, dm: ModelDims,
         q = q + p["bq"].reshape(dm.h, dm.hd)
     o = flash_attention(q, k, v, causal=False, **(opts or {}))
     return o.reshape(B, S, dm.h * dm.hd) @ p["wo"]
+
+
+def cross_decode(x1, p, cfg: ArchConfig, dm: ModelDims, ck, cv):
+    """One token's cross-attention sublayer over the cached memory K/V
+    (residual added by caller)."""
+    h = norm(x1, p, cfg.norm)
+    b = x1.shape[0]
+    q = (h @ p["wq"]).reshape(b, 1, dm.h, dm.hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(dm.h, dm.hd)
+    o = decode_attention(q, ck, cv, cur_len=ck.shape[1])
+    return o.reshape(b, 1, dm.h * dm.hd) @ p["wo"]

@@ -8,7 +8,8 @@ hybrids, ``cross_attn_every`` for VLMs), and the layer stack is a Python
 loop over the groups where the reference scans.  ``loss`` is the training
 forward, differentiated by ``torch.autograd``; ``prefill`` builds the
 decode cache in the reference's stacked layout, leaf for leaf; ``decode``
-writes it in place (the reference donates it) and returns it.
+writes it in place (the reference donates it) and returns it.  Both run
+``_serve``, the serving walk that ``parallel.tp`` runs on a mesh's shards.
 """
 from __future__ import annotations
 
@@ -119,10 +120,7 @@ class Model(nn.Module):
         """The parameter tree as meta tensors (no allocation)."""
         return param_shapes(self.cfg, self.plan)
 
-    # ------------------------------------------------------------- embedding
-    def _embed(self, params, tokens):
-        return embed_tokens(tokens, params["embed"])
-
+    # ------------------------------------------------------------- head
     def _head_matrix(self, params):
         if self.cfg.tie_embeddings:
             return params["embed"].T
@@ -284,11 +282,6 @@ class Model(nn.Module):
             return [y], a
         return fetch, each, moe
 
-    def _memory(self, params, batch):
-        """Frontend memory for encdec (audio frames) / vlm (image patches)."""
-        fetch, each, _ = self._local(params)
-        return self._memories(fetch, [batch], each)[0]
-
     # ------------------------------------------------------------- train
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """(ce + 0.01·aux, {"loss": ce, "aux": aux}) of a batch of
@@ -334,11 +327,16 @@ class Model(nn.Module):
         return tot, cnt
 
     # ------------------------------------------------------------- serve
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+    def init_cache(self, batch_size: int, max_len: int, device=None,
+                   enc_len: Optional[int] = None) -> Dict:
+        """The empty decode cache (zeros) on ``device`` (default the
+        model's; ``"meta"`` for shapes alone).  ``enc_len``: an encdec
+        cache's memory length (default ``max_len // 4``, the reference's)."""
         cfg, dm = self.cfg, self.dm
         G = dm.groups
         bf = DTYPES[cfg.dtype]
-        mk = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
+        dev = self.device if device is None else device
+        mk = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         cache: Dict = {}
         if cfg.family in ("dense", "moe", "encdec"):
             cache["k"] = mk((G, batch_size, max_len, dm.kh, dm.hd), bf)
@@ -359,7 +357,7 @@ class Model(nn.Module):
                                 torch.float32)
             cache["conv"] = mk((G, gl - 1, batch_size, dm.conv_w - 1, dm.conv_dim), bf)
         if cfg.family == "encdec":
-            enc_len = max_len // 4
+            enc_len = max_len // 4 if enc_len is None else enc_len
             cache["ck"] = mk((G, batch_size, enc_len, dm.kh, dm.hd), bf)
             cache["cv"] = mk((G, batch_size, enc_len, dm.kh, dm.hd), bf)
         if cfg.family == "vlm":
@@ -367,175 +365,216 @@ class Model(nn.Module):
             cache["cv"] = mk((G, batch_size, cfg.n_frontend_tokens, dm.kh, dm.hd), bf)
         return cache
 
-    def _prefill_group(self, x, pl, positions, memory, pad_kv):
-        """One group, full sequence: (x, this group's cache leaves)."""
+    def _slots(self, name: str) -> int:
+        """How many in-group sublayers share the cache leaf ``name`` as a
+        stacked axis after the group axis (0: one, not stacked): a VLM
+        group's self-attention layers, a hybrid group's SSM layers."""
+        fam, gl = self.cfg.family, self.dm.group_layers
+        if fam == "vlm" and name in ("k", "v"):
+            return gl
+        if fam == "hybrid" and name in ("state", "conv"):
+            return gl - 1
+        return 0
+
+    def _slot(self, cl: Dict, name: str, j: int):
+        """A group's view ``cl`` of leaf ``name``: the j-th sublayer's."""
+        return cl[name][j] if self._slots(name) else cl[name]
+
+    def _put(self, cache: Dict, name: str, g: int, j: int, v) -> None:
+        """Writes group g's j-th sublayer's leaf ``v`` into ``cache``,
+        allocating the stacked leaf at its first write."""
+        if name not in cache:
+            n = self._slots(name)
+            lead = (self.dm.groups,) + ((n,) if n else ())
+            cache[name] = v.new_empty(lead + tuple(v.shape))
+        self._slot(_group(cache, g), name, j).copy_(v)
+
+    def _serve_memories(self, h, parts):
+        """Each part's frontend memory for the serving walk: the encoder
+        (encdec, through ``h``'s sublayers) or the projected image patches
+        (vlm); None otherwise."""
         cfg, dm = self.cfg, self.dm
-        ao = self._attn_opts
-        ys = {}
-        if cfg.family in ("dense", "moe"):
-            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
-            x = x + o
-            ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
-            if cfg.family == "moe":
-                x = x + moe_ffn(x, pl["moe"], cfg, dm, self.mesh)[0]
-            else:
-                x = _mlp_block(x, pl["mlp"], cfg)
-        elif cfg.family == "ssm":
-            o, (st, conv) = ssm_mod.mamba_train(x, pl["ssm"], cfg, dm,
-                                                return_state=True,
-                                                opts=self._ssm_opts)
-            x = x + o
-            ys["state"], ys["conv"] = st, conv
-        elif cfg.family == "hybrid":
-            sts, convs = [], []
-            for j in range(dm.group_layers):
-                if j == 0:
-                    o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm,
-                                                       positions, opts=ao)
-                    x = x + o
-                    ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
+        if cfg.family not in ("encdec", "vlm"):
+            return [None] * len(parts)
+        key = "frames" if cfg.family == "encdec" else "patches"
+        xs = h.each(lambda i, b, p: (b[key] @ p["frontend_proj"]
+                                     if "frontend_proj" in p else b[key]
+                                     ).to(DTYPES[cfg.dtype]),
+                    parts, h.fetch(("frontend_proj",)))
+        if cfg.family == "vlm":
+            return xs
+        positions = h.each(lambda i, x: torch.arange(
+            x.shape[1], device=x.device)[None, :], xs)
+        xs = h.enter(xs)
+        for g in range(dm.enc_layers):
+            pls = [p["enc_blocks"] for p in h.fetch(("enc_blocks",), g)]
+            xs, _ = h.attn(xs, [p["attn"] for p in pls], positions,
+                           causal=False)
+            xs = h.act(h.mlp(xs, [p["mlp"] for p in pls]))
+        xs = h.leave(xs)
+        return h.each(lambda i, x, p: norm(x, p, cfg.norm, "enc_final_norm"),
+                      xs, h.fetch(("enc_final_norm", "enc_final_norm_b")))
+
+    def _serve(self, h, parts, cache_len: Optional[int] = None,
+               caches=None, cur_len: Optional[int] = None):
+        """The serving walk over one or more batch parts: a prefill (with
+        ``cache_len``) that builds each part's cache in the reference's
+        stacked layout, or, given ``caches``, one decode step at position
+        ``cur_len`` that writes them in place.  ``h`` holds the hooks:
+        ``fetch`` / ``each`` (as ``_train_parts``'), ``enter`` / ``leave``
+        / ``act`` (a residual stream's layout), ``embed``, one per sublayer
+        kind (``attn``, ``attn_decode``, ``ssm``, ``ssm_decode``,
+        ``cross``, ``cross_decode``, ``mlp``, ``moe``: each returns the
+        parts' residual streams after it) and ``logits``.  ``_Whole`` runs
+        the whole tree on its device (``prefill`` / ``decode``);
+        ``parallel.tp`` runs the per-shard blocks of a mesh.  Returns (the
+        parts' caches, ``h.logits``)."""
+        cfg = self.cfg
+        decode = caches is not None
+        if decode:
+            xs = h.embed([b["token"][:, None] for b in parts])
+        else:
+            memories = self._serve_memories(h, parts)
+            xs = h.embed([b["tokens"] for b in parts])
+            positions = h.each(lambda i, b: torch.arange(
+                b["tokens"].shape[1], device=b["tokens"].device)[None, :],
+                parts)
+            caches = [{} for _ in parts]
+        for g in range(self.dm.groups):
+            pls = [p["blocks"] for p in h.fetch(("blocks",), g)]
+            cls = [_group(c, g) for c in caches]
+            seen = {"attn": 0, "ssm": 0}
+            for kind, key in self._group_layers():
+                ps = [p[key] for p in pls]
+                j = seen.get(kind, 0)
+                seen[kind] = j + 1
+                if kind == "attn" and decode:
+                    xs = h.attn_decode(xs, ps, [self._slot(c, "k", j) for c in cls],
+                                       [self._slot(c, "v", j) for c in cls],
+                                       cur_len)
+                elif kind == "attn":
+                    xs, kvs = h.attn(xs, ps, positions, cache_len=cache_len)
+                    for c, (k, v) in zip(caches, kvs):
+                        self._put(c, "k", g, j, k)
+                        self._put(c, "v", g, j, v)
+                elif kind == "ssm" and decode:
+                    xs = h.ssm_decode(xs, ps,
+                                      [self._slot(c, "state", j) for c in cls],
+                                      [self._slot(c, "conv", j) for c in cls])
+                elif kind == "ssm":
+                    xs, sts = h.ssm(xs, ps)
+                    for c, (st, conv) in zip(caches, sts):
+                        self._put(c, "state", g, j, st)
+                        self._put(c, "conv", g, j, conv)
+                elif kind == "cross" and decode:
+                    xs = h.cross_decode(xs, ps, [c["ck"] for c in cls],
+                                        [c["cv"] for c in cls])
+                elif kind == "cross":
+                    xs, kvs = h.cross(xs, ps, memories)
+                    for c, (k, v) in zip(caches, kvs):
+                        self._put(c, "ck", g, 0, k)
+                        self._put(c, "cv", g, 0, v)
+                elif kind == "mlp":
+                    xs = h.mlp(xs, ps)
                 else:
-                    o, (st, conv) = ssm_mod.mamba_train(
-                        x, pl[f"ssm{j}"], cfg, dm, return_state=True,
-                        opts=self._ssm_opts)
-                    x = x + o
-                    sts.append(st)
-                    convs.append(conv)
-                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
-                    x = x + moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)[0]
-                else:
-                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
-            ys["state"] = torch.stack(sts)
-            ys["conv"] = torch.stack(convs)
-        elif cfg.family == "encdec":
-            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
-            x = x + o
-            ys["k"], ys["v"] = pad_kv(k), pad_kv(v)
-            ck, cv = attn.cross_kv(memory, pl["cross"], cfg, dm)
-            x = x + attn.cross_attn(x, (ck, cv), pl["cross"], cfg, dm, opts=ao)
-            ys["ck"], ys["cv"] = ck, cv
-            x = _mlp_block(x, pl["mlp"], cfg)
-        elif cfg.family == "vlm":
-            ks, vs = [], []
-            o, (k, v) = attn.self_attn_prefill(x, pl["attn"], cfg, dm, positions, opts=ao)
-            x = x + o
-            ks.append(pad_kv(k))
-            vs.append(pad_kv(v))
-            ck, cv = attn.cross_kv(memory, pl["cross"], cfg, dm)
-            x = x + attn.cross_attn(x, (ck, cv), pl["cross"], cfg, dm, opts=ao)
-            ys["ck"], ys["cv"] = ck, cv
-            x = _mlp_block(x, pl["mlp"], cfg)
-            for j in range(1, dm.group_layers):
-                o, (k, v) = attn.self_attn_prefill(x, pl[f"attn{j}"], cfg, dm,
-                                                   positions, opts=ao)
-                x = x + o
-                ks.append(pad_kv(k))
-                vs.append(pad_kv(v))
-                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
-            ys["k"], ys["v"] = torch.stack(ks), torch.stack(vs)
-        return x, ys
+                    xs = h.moe(xs, ps)
+            xs = h.act(xs)
+        xs = h.each(lambda i, x, p: norm(x, p, cfg.norm, "final_norm"),
+                    xs, h.fetch(("final_norm", "final_norm_b")))
+        return caches, h.logits(xs)
 
     def prefill(self, params, batch, cache_len: Optional[int] = None):
         """Full-sequence forward that also builds the decode cache.
         Returns (cache, logits_last:(B,vocab) f32 over the padded vocab)."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        cache_len = cache_len or s
-        positions = torch.arange(s, device=tokens.device)[None, :]
-        memory = self._memory(params, batch)
-        x = self._embed(params, tokens)
-
-        def pad_kv(k):
-            if cache_len == s:
-                return k
-            return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cache_len - s))
-
-        G = self.dm.groups
-        cache = None
-        for g in range(G):
-            x, ys = self._prefill_group(x, _group(params["blocks"], g),
-                                        positions, memory, pad_kv)
-            if cache is None:           # the stacked (G, ...) leaves
-                cache = {k: v.new_empty((G, *v.shape)) for k, v in ys.items()}
-            for k, v in ys.items():
-                cache[k][g] = v
-        x = norm(x, params, cfg.norm, "final_norm")
-        return cache, self._logits(params, x[:, -1])
+        cache_len = cache_len or batch["tokens"].shape[1]
+        caches, logits = self._serve(_Whole(self, params), [batch],
+                                     cache_len=cache_len)
+        return caches[0], logits
 
     def forward(self, params, batch, cache_len: Optional[int] = None):
         """``prefill``."""
         return self.prefill(params, batch, cache_len)
 
-    def _cross_dec(self, x, pc, ck, cv):
-        cfg, dm = self.cfg, self.dm
-        h = norm(x, pc, cfg.norm)
-        b = x.shape[0]
-        q = (h @ pc["wq"]).reshape(b, 1, dm.h, dm.hd)
-        if cfg.qkv_bias:
-            q = q + pc["bq"].reshape(dm.h, dm.hd)
-        o = attn.decode_attention(q, ck, cv, cur_len=ck.shape[1])
-        return x + o.reshape(b, 1, dm.h * dm.hd) @ pc["wo"]
-
-    def _decode_group(self, x, pl, cl, cur_len: int):
-        """One group, one token; writes the group's cache views ``cl``."""
-        cfg, dm = self.cfg, self.dm
-        fam = cfg.family
-        if fam in ("dense", "moe", "encdec"):
-            o, _, _ = attn.self_attn_decode(x, pl["attn"], cfg, dm,
-                                            cl["k"], cl["v"], cur_len)
-            x = x + o
-        if fam == "moe":
-            x = x + moe_ffn(x, pl["moe"], cfg, dm, self.mesh)[0]
-        elif fam == "dense":
-            x = _mlp_block(x, pl["mlp"], cfg)
-        elif fam == "ssm":
-            o, st, conv = ssm_mod.mamba_decode(x, pl["ssm"], cfg, dm,
-                                               cl["state"], cl["conv"])
-            x = x + o
-            cl["state"].copy_(st)
-            cl["conv"].copy_(conv)
-        elif fam == "hybrid":
-            for j in range(dm.group_layers):
-                if j == 0:
-                    o, _, _ = attn.self_attn_decode(
-                        x, pl["attn"], cfg, dm, cl["k"], cl["v"], cur_len)
-                    x = x + o
-                else:
-                    o, st, conv = ssm_mod.mamba_decode(
-                        x, pl[f"ssm{j}"], cfg, dm,
-                        cl["state"][j - 1], cl["conv"][j - 1])
-                    x = x + o
-                    cl["state"][j - 1].copy_(st)
-                    cl["conv"][j - 1].copy_(conv)
-                if cfg.n_experts and (j % cfg.moe_every == cfg.moe_every - 1):
-                    x = x + moe_ffn(x, pl[f"ffn{j}_moe"], cfg, dm, self.mesh)[0]
-                else:
-                    x = _mlp_block(x, pl[f"ffn{j}"], cfg)
-        elif fam == "encdec":
-            x = self._cross_dec(x, pl["cross"], cl["ck"], cl["cv"])
-            x = _mlp_block(x, pl["mlp"], cfg)
-        elif fam == "vlm":   # per-in-group-layer self-attn caches
-            o, _, _ = attn.self_attn_decode(
-                x, pl["attn"], cfg, dm, cl["k"][0], cl["v"][0], cur_len)
-            x = x + o
-            x = self._cross_dec(x, pl["cross"], cl["ck"], cl["cv"])
-            x = _mlp_block(x, pl["mlp"], cfg)
-            for j in range(1, dm.group_layers):
-                o, _, _ = attn.self_attn_decode(
-                    x, pl[f"attn{j}"], cfg, dm, cl["k"][j], cl["v"][j],
-                    cur_len)
-                x = x + o
-                x = _mlp_block(x, pl[f"mlp{j}"], cfg)
-        return x
-
     def decode(self, params, cache, cur_len: int, token):
         """token:(B,) int; cur_len: the position written (a Python int).
         Returns (logits, cache), the cache updated in place."""
-        cfg = self.cfg
-        x = self._embed(params, token[:, None])
-        for g in range(self.dm.groups):
-            x = self._decode_group(x, _group(params["blocks"], g),
-                                   _group(cache, g), int(cur_len))
-        x = norm(x, params, cfg.norm, "final_norm")
-        return self._logits(params, x[:, -1]), cache
+        _, logits = self._serve(_Whole(self, params), [{"token": token}],
+                                caches=[cache], cur_len=int(cur_len))
+        return logits, cache
+
+
+class _Whole:
+    """``Model._serve``'s hooks for one part holding the whole parameter
+    tree on its device: each sublayer is the reference's, residual added."""
+
+    def __init__(self, model: Model, params):
+        self.m, self.params = model, params
+        self.cfg, self.dm = model.cfg, model.dm
+
+    def fetch(self, names, g=None):
+        return [{n: self.params[n] if g is None
+                 else _group_slice(self.params[n], g)
+                 for n in names if n in self.params}]
+
+    def each(self, fn, *lists):
+        return [fn(0, *(lst[0] for lst in lists))]
+
+    def enter(self, xs):
+        return xs
+
+    leave = enter
+    act = enter
+
+    def embed(self, toks):
+        return [embed_tokens(toks[0], self.params["embed"])]
+
+    def attn(self, xs, ps, positions, causal=True, cache_len=None):
+        cfg, dm, ao = self.cfg, self.dm, self.m._attn_opts
+        x, p, pos = xs[0], ps[0], positions[0]
+        if cache_len is None:                 # the encoder's
+            return [x + attn.self_attn_train(x, p, cfg, dm, pos, causal=causal,
+                                             opts=ao)], None
+        o, (k, v) = attn.self_attn_prefill(x, p, cfg, dm, pos, opts=ao)
+        pad = cache_len - x.shape[1]
+        if pad:
+            k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                    for t in (k, v))
+        return [x + o], [(k, v)]
+
+    def attn_decode(self, xs, ps, ks, vs, cur_len):
+        o, _, _ = attn.self_attn_decode(xs[0], ps[0], self.cfg, self.dm,
+                                        ks[0], vs[0], cur_len)
+        return [xs[0] + o]
+
+    def ssm(self, xs, ps):
+        o, (st, conv) = ssm_mod.mamba_train(xs[0], ps[0], self.cfg, self.dm,
+                                            return_state=True,
+                                            opts=self.m._ssm_opts)
+        return [xs[0] + o], [(st, conv)]
+
+    def ssm_decode(self, xs, ps, sts, convs):
+        o, st, conv = ssm_mod.mamba_decode(xs[0], ps[0], self.cfg, self.dm,
+                                           sts[0], convs[0])
+        sts[0].copy_(st)
+        convs[0].copy_(conv)
+        return [xs[0] + o]
+
+    def cross(self, xs, ps, memories):
+        ck, cv = attn.cross_kv(memories[0], ps[0], self.cfg, self.dm)
+        return [xs[0] + attn.cross_attn(xs[0], (ck, cv), ps[0], self.cfg,
+                                        self.dm, opts=self.m._attn_opts)], \
+            [(ck, cv)]
+
+    def cross_decode(self, xs, ps, cks, cvs):
+        return [xs[0] + attn.cross_decode(xs[0], ps[0], self.cfg, self.dm,
+                                          cks[0], cvs[0])]
+
+    def mlp(self, xs, ps):
+        return [_mlp_block(xs[0], ps[0], self.cfg)]
+
+    def moe(self, xs, ps):
+        return [xs[0] + moe_ffn(xs[0], ps[0], self.cfg, self.dm,
+                                self.m.mesh)[0]]
+
+    def logits(self, xs):
+        return self.m._logits(self.params, xs[0][:, -1])

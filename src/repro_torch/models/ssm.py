@@ -107,10 +107,12 @@ def _split_in(h: torch.Tensor, dm: ModelDims):
     return z, xbc, dt
 
 
-def mamba_train(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
-                return_state: bool = False, opts: Optional[dict] = None):
-    """Full-sequence Mamba2 sublayer (pre-norm; residual added by caller).
-    With ``return_state`` also the decode state: (ssm state, conv tail)."""
+def mamba_gated(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
+                opts: Optional[dict] = None):
+    """The Mamba2 sublayer up to its output norm: (y · silu(z) before the
+    gated RMSNorm, the final SSM state).  ``dm`` may be one shard's heads
+    (``d_inner``, ``ssm_h`` and ``conv_dim`` of its columns, ``p`` its
+    columns of ``w_in`` and the conv: the tensor-parallel program)."""
     opts = opts or {}
     bsz, s, _ = x.shape
     h = norm(x, p, cfg.norm) @ p["w_in"]
@@ -127,8 +129,15 @@ def mamba_train(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
                            dtype16=opts.get("ssd_dtype", "") == "bfloat16")
     y = y + xi * p["d_skip"][:, None]
     y = y.reshape(bsz, s, dm.d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["out_norm"])
-    out = y @ p["w_out"]
+    return y * F.silu(z), state
+
+
+def mamba_train(x: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
+                return_state: bool = False, opts: Optional[dict] = None):
+    """Full-sequence Mamba2 sublayer (pre-norm; residual added by caller).
+    With ``return_state`` also the decode state: (ssm state, conv tail)."""
+    g, state = mamba_gated(x, p, cfg, dm, opts)
+    out = rmsnorm(g, p["out_norm"]) @ p["w_out"]
     if return_state:
         conv_tail = xbc_raw_tail(x, p, cfg, dm)
         return out, (state, conv_tail)
@@ -142,10 +151,11 @@ def xbc_raw_tail(x, p, cfg: ArchConfig, dm: ModelDims):
     return xbc[:, -(dm.conv_w - 1):, :]
 
 
-def mamba_decode(x1: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
-                 state: torch.Tensor, conv_state: torch.Tensor):
-    """x1:(B,1,D); state:(B,H,P,N); conv_state:(B,W-1,conv_dim).
-    Returns (out, new state, new conv state)."""
+def mamba_decode_gated(x1: torch.Tensor, p: Dict, cfg: ArchConfig,
+                       dm: ModelDims, state: torch.Tensor,
+                       conv_state: torch.Tensor):
+    """One token up to the output norm: (y · silu(z), new state, new conv
+    state); ``dm`` and ``p`` as ``mamba_gated``'s."""
     bsz = x1.shape[0]
     h = norm(x1, p, cfg.norm) @ p["w_in"]
     z, xbc, dt = _split_in(h, dm)
@@ -165,6 +175,13 @@ def mamba_decode(x1: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
     y, state = ssd_decode_step(state, xi, dtf, a, b1, c1)
     y = y + xi * p["d_skip"][:, None]
     y = y.reshape(bsz, 1, dm.d_inner).to(x1.dtype)
-    y = rmsnorm(y * F.silu(z), p["out_norm"])
     new_conv = window[:, 1:, :].to(conv_state.dtype)
-    return y @ p["w_out"], state, new_conv
+    return y * F.silu(z), state, new_conv
+
+
+def mamba_decode(x1: torch.Tensor, p: Dict, cfg: ArchConfig, dm: ModelDims,
+                 state: torch.Tensor, conv_state: torch.Tensor):
+    """x1:(B,1,D); state:(B,H,P,N); conv_state:(B,W-1,conv_dim).
+    Returns (out, new state, new conv state)."""
+    g, state, new_conv = mamba_decode_gated(x1, p, cfg, dm, state, conv_state)
+    return rmsnorm(g, p["out_norm"]) @ p["w_out"], state, new_conv

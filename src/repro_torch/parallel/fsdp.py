@@ -83,38 +83,98 @@ def _set(tree, path: Path, value) -> None:
 @dataclass(frozen=True)
 class LeafPlace:
     """Where one leaf lives: its global shape, its spec, the dims a compute
-    gathers (every split dim but an expert dim on the EP axis), and the
-    mesh axes it is replicated over."""
+    gathers, and the mesh axes it is replicated over."""
     shape: Tuple[int, ...]
     spec: Tuple
     gather_dims: Tuple[int, ...]
     replicated: Tuple[str, ...]
 
 
-def _place(logical, shape, mesh: ShardMesh, rules) -> LeafPlace:
+def fsdp_gathered(path: Path, logical, spec) -> Tuple[int, ...]:
+    """The FSDP strategy's compute gathers every split dim but an expert
+    dim (each shard runs its own experts, ``models.moe``)."""
+    return tuple(i for i, (e, name) in enumerate(zip(spec, logical))
+                 if e is not None and name != "expert")
+
+
+def _place(path: Path, logical, shape, mesh: ShardMesh, rules,
+           gathered: Callable = fsdp_gathered) -> LeafPlace:
     spec = spec_for_logical(logical, shape, mesh, rules)
     used = {a for e in spec for a in spec_axes(e)}
-    gather = tuple(i for i, (e, name) in enumerate(zip(spec, logical))
-                   if e is not None and name != "expert")
-    return LeafPlace(tuple(shape), spec, gather,
+    return LeafPlace(tuple(shape), spec, tuple(gathered(path, logical, spec)),
                      tuple(a for a in mesh.axis_names if a not in used))
 
 
-class StateLayout:
-    """Every train-state leaf's placement on ``mesh`` under ``rules``."""
+class TreeLayout:
+    """Every leaf of a tree placed on ``mesh`` under ``rules``: the leaves
+    of ``logical_tree`` (logical axis tuples) with the shapes of the
+    matching leaves of ``shape_tree`` (tensors or meta tensors).  One code
+    places either strategy's parameters, a train state's moments and a
+    decode cache; ``gathered(path, logical, spec)`` names the dims a
+    compute gathers (``fsdp_gathered``, or ``parallel.tp``'s rule)."""
+
+    def __init__(self, logical_tree, shape_tree, mesh: ShardMesh, rules,
+                 gathered: Callable = fsdp_gathered):
+        self.mesh, self.rules = mesh, rules
+        self.places: Dict[Path, LeafPlace] = {
+            path: _place(path, lg, tuple(_get(shape_tree, path).shape), mesh,
+                         rules, gathered)
+            for path, lg in _logical_leaves(logical_tree)}
+
+    def block(self, place: LeafPlace, s: int) -> Tuple[slice, ...]:
+        return block_slices(place.shape, place.spec, self.mesh, s)
+
+    def holds_once(self, place: LeafPlace, s: int) -> bool:
+        """Whether shard s is the first holder of its block (its index on
+        the axes the leaf is replicated over is 0)."""
+        return self.mesh.index_on(s, place.replicated) == 0
+
+    def shard_tree(self, tree: Dict,
+                   places: Optional[Dict[Path, LeafPlace]] = None
+                   ) -> List[Dict]:
+        """A whole tree -> one tree of blocks per present shard, each block
+        a copy on its shard's device."""
+        out = []
+        for s in self.mesh.present:
+            dev = self.mesh.devices[s]
+            t: Dict = {}
+            for path, pl in (places or self.places).items():
+                _set(t, path, _get(tree, path)[self.block(pl, s)].to(
+                    dev, copy=True))
+            out.append(t)
+        return out
+
+    def unshard_tree(self, trees: Sequence[Dict], device=None,
+                     places: Optional[Dict[Path, LeafPlace]] = None) -> Dict:
+        """Every shard's tree of blocks -> the whole tree on ``device``
+        (default: the first shard's device)."""
+        if len(trees) != self.mesh.size:
+            raise ValueError(f"unshard: {len(trees)} shard trees for a "
+                             f"mesh of {self.mesh.size}")
+        dev = device or self.mesh.devices[0]
+        out: Dict = {}
+        for path, place in (places or self.places).items():
+            src = [_get(t, path) for t in trees]
+            full = torch.empty(place.shape, dtype=src[0].dtype, device=dev)
+            for s, blk in enumerate(src):
+                full[self.block(place, s)] = blk.to(dev)
+            _set(out, path, full)
+        return out
+
+
+class StateLayout(TreeLayout):
+    """Every train-state leaf's placement on ``mesh`` under ``rules``:
+    ``params`` the parameters' places (also the gradients'), ``moments``
+    the moments' (ZeRO-1 rules: ``"fsdp"`` → ``rules["fsdp+"]``)."""
 
     def __init__(self, model, mesh: ShardMesh, rules=FSDP_RULES):
-        self.mesh, self.rules = mesh, rules
         lax_tree = logical_axes(model.cfg, model.plan)
         shapes = model.param_shapes()
+        super().__init__(lax_tree, shapes, mesh, rules)
+        self.params = self.places
         zrules = dict(rules)              # ZeRO-1 across pods for opt state
         zrules["fsdp"] = rules["fsdp+"]
-        self.params: Dict[Path, LeafPlace] = {}
-        self.moments: Dict[Path, LeafPlace] = {}
-        for path, lg in _logical_leaves(lax_tree):
-            shp = tuple(_get(shapes, path).shape)
-            self.params[path] = _place(lg, shp, mesh, rules)
-            self.moments[path] = _place(lg, shp, mesh, zrules)
+        self.moments = TreeLayout(lax_tree, shapes, mesh, zrules).places
         self.opt_dtype = model.cfg.opt_dtype
 
     def check_step(self) -> None:
@@ -128,32 +188,16 @@ class StateLayout:
                 f"sharded apart from their parameters (ZeRO-1 across a pod "
                 f"axis); the sharded step needs them together")
 
-    def block(self, place: LeafPlace, s: int) -> Tuple[slice, ...]:
-        return block_slices(place.shape, place.spec, self.mesh, s)
-
-    def holds_once(self, place: LeafPlace, s: int) -> bool:
-        """Whether shard s is the first holder of its block (its index on
-        the axes the leaf is replicated over is 0)."""
-        return self.mesh.index_on(s, place.replicated) == 0
-
     def shard(self, state: Dict) -> List[Dict]:
         """A state -> one state of blocks per present shard, each block a
         copy on its shard's device."""
-        out = []
-        for s in self.mesh.present:
-            dev = self.mesh.devices[s]
-            st = {"params": {}, "opt": {"m": {}, "v": {},
-                                        "step": state["opt"]["step"].to(
-                                            dev, copy=True)}}
-            for path, pl in self.params.items():
-                _set(st["params"], path, _get(state["params"], path)[
-                    self.block(pl, s)].to(dev, copy=True))
-                mpl = self.moments[path]
-                for k in ("m", "v"):
-                    _set(st["opt"][k], path, _get(state["opt"][k], path)[
-                        self.block(mpl, s)].to(dev, copy=True))
-            out.append(st)
-        return out
+        ps = self.shard_tree(state["params"])
+        ms = {k: self.shard_tree(state["opt"][k], self.moments)
+              for k in ("m", "v")}
+        return [{"params": ps[i], "opt": {
+            "m": ms["m"][i], "v": ms["v"][i],
+            "step": state["opt"]["step"].to(self.mesh.devices[s], copy=True)}}
+            for i, s in enumerate(self.mesh.present)]
 
     def unshard(self, shards: Sequence[Dict], device=None) -> Dict:
         """Every shard's state (all shards present) -> the whole state on
@@ -165,23 +209,6 @@ class StateLayout:
                                              dev, self.moments)
                         for k in ("m", "v")} | {
                     "step": shards[0]["opt"]["step"].to(dev, copy=True)}}
-
-    def unshard_tree(self, trees: Sequence[Dict], device=None,
-                     places: Optional[Dict[Path, LeafPlace]] = None) -> Dict:
-        """Every shard's tree of blocks (parameters, or anything placed as
-        they are: their gradients) -> the whole tree on ``device``."""
-        if len(trees) != self.mesh.size:
-            raise ValueError(f"unshard: {len(trees)} shard trees for a "
-                             f"mesh of {self.mesh.size}")
-        dev = device or self.mesh.devices[0]
-        out: Dict = {}
-        for path, place in (places or self.params).items():
-            src = [_get(t, path) for t in trees]
-            full = torch.empty(place.shape, dtype=src[0].dtype, device=dev)
-            for s, blk in enumerate(src):
-                full[self.block(place, s)] = blk.to(dev)
-            _set(out, path, full)
-        return out
 
 
 def shard_state(state: Dict, model, mesh: ShardMesh,
@@ -222,11 +249,11 @@ def init_sharded_state(model, mesh: ShardMesh, generator: torch.Generator,
     return out
 
 
-def split_batch(batch: Dict, cfg, mesh: ShardMesh, rules=FSDP_RULES
-                ) -> List[Dict]:
-    """The global batch -> each present shard's block of every leaf (by
-    ``batch_logical``'s spec), on the shard's device."""
-    blog = batch_logical(cfg, "train")
+def split_batch(batch: Dict, cfg, mesh: ShardMesh, rules=FSDP_RULES,
+                kind: str = "train") -> List[Dict]:
+    """The global batch of a ``kind`` step -> each present shard's block of
+    every leaf (by ``batch_logical``'s spec), on the shard's device."""
+    blog = batch_logical(cfg, kind)
     out = []
     for s in mesh.present:
         dev = mesh.devices[s]
@@ -259,6 +286,18 @@ class _Gather(torch.autograd.Function):
         return (None, None) + (None,) * len(grads)
 
 
+def gather_blocks(blocks, place: LeafPlace, mesh: ShardMesh,
+                  index: Optional[int] = None) -> List[torch.Tensor]:
+    """The present shards' blocks of one leaf (its ``index``-th group slice
+    of a stacked leaf) all-gathered over each of ``place.gather_dims``' axes,
+    one tensor per present shard."""
+    off = 0 if index is None else 1       # a group slice drops dim 0
+    parts = list(blocks)
+    for d in place.gather_dims:
+        parts = all_gather(parts, mesh, axis=place.spec[d], dim=d - off)
+    return parts
+
+
 class _LeafGather:
     """One leaf's gather on a mesh (``_Gather``'s forward and backward);
     ``sinks[i]`` is the present shard i's f32 gradient block (``index``:
@@ -270,10 +309,8 @@ class _LeafGather:
         self.steps = [(d - off, place.spec[d]) for d in place.gather_dims]
 
     def forward(self, blocks):
-        parts = list(blocks)
         with torch.no_grad():
-            for dim, axes in self.steps:
-                parts = all_gather(parts, self.mesh, axis=axes, dim=dim)
+            parts = gather_blocks(blocks, self.place, self.mesh, self.index)
         self.shapes = [(p.shape, p.dtype, p.device) for p in parts]
         return parts
 

@@ -9,9 +9,10 @@ under ``"none"`` (the recompute is counted, as XLA counts remat); the
 share's counted collective bytes equal those a full mesh of CPU shards
 moves per device in the same step; a train cell and a ``replica`` cell of
 smoke configs run through ``main()`` and write records with the
-reference's keys, counting at least ``model_flops``; a TP cell writes a
-``pending`` record with no counted field; the RNSG serving cell at a
-reduced shape; ``lower_for_dryrun`` on a small index."""
+reference's keys, counting at least ``model_flops``; a TP prefill cell is
+counted the same way (the TP serving program's share, ``parallel.tp``); the
+RNSG serving cell at a reduced shape; ``lower_for_dryrun`` on a small
+index."""
 import dataclasses
 import json
 
@@ -123,8 +124,8 @@ def test_share_counts_what_the_mesh_moves(arch):
 
 
 def test_main_writes_reference_records(tmp_path, capsys):
-    """A train cell and a replica cell (smoke configs on the production
-    mesh), and a TP cell, which stays pending."""
+    """A train cell, a replica cell and a TP cell (smoke configs on the
+    production mesh), each counted."""
     dryrun.main(["--arch", "qwen1.5-4b", "--shape", "train_4k", "--smoke",
                  "--results", str(tmp_path)])
     rec = json.loads((tmp_path / "qwen1.5-4b__train_4k__pod16x16.json")
@@ -147,13 +148,15 @@ def test_main_writes_reference_records(tmp_path, capsys):
                  "--smoke", "--results", str(tmp_path)])
     rec = json.loads((tmp_path / "qwen1.5-4b__prefill_32k__pod16x16.json")
                      .read_text())
-    assert rec["pending"] == "tensor-parallel program"
-    assert not {"cost", "collectives", "roofline", "compile_s",
-                "useful_ratio"} & set(rec)
-    assert rec["memory"]["argument_bytes"] > 0 and rec["model_flops"] > 0
+    assert COUNTED <= set(rec) and "pending" not in rec
+    assert rec["collectives"]["total"] > 0
+    assert rec["collectives"]["all-reduce"] > 0      # the row-parallel sums
+    assert rec["cost"]["flops_per_device"] * rec["chips"] >= \
+        rec["model_flops"] > 0
+    assert rec["memory"]["argument_bytes"] > 0
     table = roofline.roofline_table(results=tmp_path)
     assert "qwen1.5-4b | train_4k" in table and "pending" not in table
-    assert "tensor-parallel program" in table
+    assert "qwen1.5-4b | prefill_32k" in table and "not counted" not in table
     assert "qwen1.5-4b | train_4k" in roofline.dryrun_table(results=tmp_path)
     assert "dry-run complete" in capsys.readouterr().out
 
