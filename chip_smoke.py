@@ -153,7 +153,17 @@ Phases, each printing its lines:
              against the unsharded step (loss 1e-5, gradients 1e-4 of
              max(1, |g|)); the dry-run's share of the S = 8 step on fakes
              (``launch.dryrun --mesh``, run on the host meanwhile), whose
-             collective bytes and parameter bytes must equal the card's;
+             collective bytes and parameter bytes must equal the card's.
+             Then the TP strategy's step (``DEFAULT_RULES``) with SP at
+             (data 2, model 4), one step: its gradient norm and parameter
+             slices within twice micro_batches=2's distance to the
+             unsharded step, its loss within 2^-8 (TP_LOSS_REL), its
+             per-device bytes equal to the arithmetic from the model's
+             dims (``_tp_train_arith``) and to the dry-run's count of its
+             share (``--opt strategy=tp --opt sp=1``); 2-layer f32 copies
+             at full width under TP (qwen1.5-4b, mamba2-780m) and under
+             ZeRO-1 across pods (qwen1.5-4b at (pod 2, data 2, model 2)),
+             each within 1e-4 of its unsharded f32 step, TF32 off;
 13. lm     — the LM scaffold's serving path (no hand kernel: plain torch
              ops and cuBLAS products): llama3-8b at full width and depth
              (bf16, parameters drawn on the card from ``--seed``) and
@@ -184,9 +194,10 @@ Phases, each printing its lines:
              shapes again, one batch of the mesh phase's mesh and
              local async paths, one decode step of the lm phase's
              llama3-8b and mamba2-780m, then (their models freed) one
-             qwen1.5-4b and one mamba2-780m train step, each on a state
-             drawn again (their idle shares; a train step's from its own
-             wall), under torch.profiler: device time and device
+             qwen1.5-4b and one mamba2-780m train step and one step of the
+             shard phase's TP step, each on a state drawn again (their
+             idle shares; a train step's from its own wall), under
+             torch.profiler: device time and device
              launches per call (last, because a profiler session slows the
              host-side torch ops of every later phase);
 15. the ``{"kernels": [...]}`` line (each kernel's launches per mesh
@@ -274,7 +285,10 @@ def _device_ms(fn, calls: int = 10):
     """(device ms per call, device launches per call, {kernel: device ms
     per call}) of fn under torch.profiler: each kernel's mean time per
     launch, times its launches per call (at least one; the profiler may
-    drop events, never add them)."""
+    drop events, never add them).  The device events are summed by name
+    straight from the profiler's raw records, as ``key_averages()`` sums
+    them; its parse of every host event took minutes for a step of 150,000
+    launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,16 +301,20 @@ def _device_ms(fn, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels, launches = {}, 0
-    for e in p.key_averages():
+    total_ns, count = {}, {}
+    for e in p.profiler.kineto_results.events():
         # the substrates' rnsg.* spans come back as device-side annotations
         # covering the kernels they enclose: not kernels
-        if (e.device_type == DeviceType.CUDA and e.count
-                and not e.key.startswith("rnsg.")):
-            per_call = max(1, round(e.count / calls))
-            kernels[e.key] = (e.self_device_time_total / 1e3 / e.count
-                              * per_call)
-            launches += per_call
+        if (e.device_type() != DeviceType.CUDA or e.name().startswith("rnsg.")
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        total_ns[e.name()] = total_ns.get(e.name(), 0) + e.duration_ns()
+        count[e.name()] = count.get(e.name(), 0) + 1
+    kernels, launches = {}, 0
+    for key, ns in total_ns.items():
+        per_call = max(1, round(count[key] / calls))
+        kernels[key] = ns / 1e6 / count[key] * per_call
+        launches += per_call
     return sum(kernels.values()), launches, kernels
 
 
@@ -716,8 +734,8 @@ def phase_l2dist(seed, bench_n):
     bf16; every value >= 0): L2_SHAPES in f32 and bf16, and every shape
     the bench phase's segment-tree build gives it (``bench_n`` rows, f32).
     Timed at the build's top-level tile, the benchmark's shapes and the
-    1024 × 262,144 tile beside its bound, the plain version and, in f32,
-    ``torch.cdist``'s matmul path with TF32 off."""
+    1024 × 262,144 tile beside its bound, the plain version and
+    ``torch.cdist``'s matmul path (TF32 off; bf16 inputs in bf16)."""
     import torch
     from repro_torch.kernels import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -749,9 +767,8 @@ def phase_l2dist(seed, bench_n):
             _device_probe(rec, functools.partial(ops.l2dist, a, b),
                           f"l2dist {q}x{n}x{d} {rec['dtype']}", 5)
             rec["plain_ms"] = _time_ms(lambda: ref.l2dist_ref(a, b), reps)
-            rec["library_ms"] = (_time_ms(lambda: torch.cdist(
+            rec["library_ms"] = _time_ms(lambda: torch.cdist(
                 a, b, compute_mode="use_mm_for_euclid_dist"), reps)
-                if dt == torch.float32 else None)
             rec["bound_ms"], rec["bound_by"] = _bound(
                 (q * d + n * d) * a.element_size() + q * n * 4,
                 2.0 * q * n * d)
@@ -3336,6 +3353,32 @@ SHARD_SLICE = 4096
 #: the micro-batch step's distance to the unsharded step, and the limit of
 #: the sharded step's distance to its micro-batch step
 SHARD_FLOOR = 2.0 ** -20
+#: the TP strategy's step (``DEFAULT_RULES``): 8 shards on the first card,
+#: each data rank running the whole batch (the batch's ("pod", "data")
+#: resolves to no split without a pod axis), each model rank its quarter of
+#: the heads, ``d_ff`` and vocab.  With sequence parallelism: without it
+#: the step peaks at 78.5 GB alone and runs out of memory beside what the
+#: earlier phases hold until their device-time readings
+SHARD_TP = {"data": 2, "model": 4}
+SHARD_TP_OPTS = dict(SHARD_OPTS, sp=True)
+#: ZeRO-1 across pods: the moments over (pod, data), the parameters over
+#: data (the TP strategy's rules), on the 2-layer f32 copy
+SHARD_ZERO1 = {"pod": 2, "data": 2, "model": 2}
+#: the TP step's loss limit against the unsharded step (bf16, full depth):
+#: bf16's unit roundoff, 2^-8 (relative).  Its gradient norm and post-step
+#: parameters are held, as the ZeRO-3 runs are, within twice
+#: micro_batches=2's distance; its loss cannot be: the step's GEMMs have
+#: other shapes and its row-parallel sums round per rank, and the forward
+#: of a random-weight stack of 40 layers amplifies any last-bit difference,
+#: while micro_batches=2's forward is the unsharded one bit for bit
+#: (``benchmarks/tp_distance_torch.py`` measures both, and a planted fault
+#: that the loss does not see)
+TP_LOSS_REL = 2.0 ** -8
+#: the 2-layer f32 copies' rate: Adam's first step moves a parameter by
+#: about the rate, signed by its gradient, so two programs whose gradients
+#: round apart across 0 part by twice the rate; 4e-5 keeps that inside
+#: the 1e-4 limit (the moments carry the check of the update)
+TP_CUT_LR = 4e-5
 
 
 def _slices(tree):
@@ -3403,9 +3446,9 @@ def _rel_to(a, b, pre) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def _shard_cut(seed, dev):
-    """qwen1.5-4b's f32 copy cut to 2 layers at full width (numpy
-    parameters from ``seed``): the sharded step at S = 8 against the
+def _shard_cut(seed, dev, drawn):
+    """qwen1.5-4b's f32 copy cut to 2 layers at full width (``drawn``, its
+    numpy parameters from ``seed``): the sharded step at S = 8 against the
     unsharded step, loss within 1e-5 and each gradient leaf and each
     post-step moment leaf within 1e-4 · max(1, max |g|) (the train phase's
     card-vs-CPU rule); and its post-step parameters and moments equal to
@@ -3413,11 +3456,9 @@ def _shard_cut(seed, dev):
     SHARD_FLOOR · max(1, max |x|) (each shard runs that step's shapes and
     sums in its order; a wrong learning rate or a skipped leaf on an owner
     moves a block by far more)."""
-    import dataclasses
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import Model
-    from repro_torch.models.params import numpy_params, params_from_reference
+    from repro_torch.models.params import params_from_reference
     from repro_torch.parallel.fsdp import (StateLayout,
                                            build_sharded_train_step,
                                            shard_state)
@@ -3427,8 +3468,7 @@ def _shard_cut(seed, dev):
     from repro_torch.training.train_step import build_train_step
     from repro_torch.training.tree import leaves_with_path, path_key
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2,
-                              dtype="float32")
+    cfg = _cut_cfg("qwen1.5-4b")
     mesh = make_mesh(SHARD_MESHES[8], [dev])
     rng = np.random.default_rng(seed)
     batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size,
@@ -3436,8 +3476,6 @@ def _shard_cut(seed, dev):
                                 dtype=torch.int32, device=dev)
              for k in ("tokens", "labels")}
     sched = lambda step: torch.tensor(SHARD_LR, device=dev)  # noqa: E731
-
-    drawn = dict(numpy_params(cfg, seed))   # drawn once, copied per step
 
     def fresh():
         p = params_from_reference(drawn, cfg, dev)
@@ -3492,7 +3530,7 @@ def _shard_cut(seed, dev):
                 b = get(ref_mb, path)[blk].float()
                 worst_mb = max(worst_mb, float((a - b).abs().max())
                                / max(1.0, float(b.abs().max())))
-    del shards, mb, moments0, drawn
+    del shards, mb, moments0
     torch.cuda.empty_cache()
     print(f"[shard] 2-layer f32 copy at full width, {SHARD_BATCH} x 256 "
           f"tokens, S = 8: loss {float(m1['loss']):.6f} against "
@@ -3510,22 +3548,177 @@ def _shard_cut(seed, dev):
                 micro8_rel=worst_mb)
 
 
+def _cut_cfg(arch):
+    """``arch``'s f32 copy cut to 2 layers at full width."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+
+
+def _tp_cut(seed, dev, arch, runs, drawn=None):
+    """``arch``'s f32 copy cut to 2 layers at full width (``drawn``, its
+    numpy parameters from ``seed``), 8 x 256 tokens: each of ``runs``,
+    (label, axes, rules), a sharded step with all shards on ``dev``,
+    against the unsharded step, TF32 off, at the constant rate TP_CUT_LR.
+    Loss within 1e-4, and each gradient leaf, each post-step parameter
+    and each post-step moment within 1e-4 · max(1, max |g|) of the leaf
+    (TRAIN_GRAD_TOL)."""
+    import torch
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import numpy_params, params_from_reference
+    from repro_torch.parallel.fsdp import (StateLayout,
+                                           build_sharded_train_step)
+    from repro_torch.parallel.sharding import make_act_sharder, make_mesh
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.train_step import build_train_step
+    from repro_torch.training.tree import leaves_with_path, path_key
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = _cut_cfg(arch)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             (SHARD_BATCH, 256)),
+                                dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    sched = lambda step: torch.tensor(TP_CUT_LR, device=dev)  # noqa: E731
+    drawn = drawn or dict(numpy_params(cfg, seed))
+
+    def fresh():
+        p = params_from_reference(drawn, cfg, dev)
+        return {"params": p, "opt": adamw_init(p, cfg.opt_dtype)}
+
+    grads0 = {}
+
+    def keep(g):
+        grads0.update({path_key(p): t.float() for p, t in
+                       leaves_with_path(g)})
+        return g
+    s0, m0 = build_train_step(Model(cfg, device=dev, opts=SHARD_OPTS),
+                              lr_schedule=sched, grad_transform=keep)(
+        fresh(), batch)
+    want = {path_key(p): t for p, t in leaves_with_path(s0)}
+    del s0
+    gmax = {k: max(1.0, float(g.abs().max())) for k, g in grads0.items()}
+    out = {}
+    for label, axes, rules in runs:
+        t1 = time.perf_counter()
+        mesh = make_mesh(axes, [dev])
+        smodel = Model(cfg, device=dev, mesh=mesh, opts=SHARD_OPTS,
+                       act_shard=make_act_sharder(mesh, rules))
+        lay = StateLayout(smodel, mesh, rules)
+        shards, m1 = build_sharded_train_step(
+            smodel, mesh, rules, lr_schedule=sched, keep_grads=True)(
+            lay.shard(fresh()), batch)
+        g1 = lay.unshard_tree(m1.pop("grads"), places=lay.moments)
+        worst_g = max(float((t - grads0[path_key(p)]).abs().max())
+                      / gmax[path_key(p)] for p, t in leaves_with_path(g1))
+        del g1
+        worst_s = 0.0
+        for p, t in leaves_with_path(lay.unshard(shards)):
+            key = path_key(p)
+            leaf = key.split("/", 2)[-1] if key.startswith("opt/") else \
+                key.split("/", 1)[-1]
+            if leaf in gmax:
+                worst_s = max(worst_s, float((t.float() - want[key].float())
+                                             .abs().max()) / gmax[leaf])
+        dl = abs(float(m1["loss"]) - float(m0["loss"]))
+        del shards
+        torch.cuda.empty_cache()
+        print(f"[shard] {label}: 2-layer f32 copy of {arch} at full width, "
+              f"{SHARD_BATCH} x 256 tokens, {axes}: loss "
+              f"{float(m1['loss']):.6f} against {float(m0['loss']):.6f} "
+              f"unsharded (|d| {dl:.2e}); gradients within {worst_g:.2e} and "
+              f"post-step parameters and moments within {worst_s:.2e} of "
+              f"max(1, |g|) (limit {TRAIN_GRAD_TOL}); {len(lay.zero1)} "
+              f"ZeRO-1 leaves; {time.perf_counter() - t1:.1f} s")
+        if not (dl <= TRAIN_GRAD_TOL
+                and max(worst_g, worst_s) <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"[shard] the 2-layer f32 {label} step "
+                                 f"differs from the unsharded step")
+        out[label] = dict(loss_diff=dl, grad_rel=worst_g, state_rel=worst_s,
+                          zero1_leaves=len(lay.zero1))
+    print(f"[shard] 2-layer f32 copies of {arch}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _tp_train_arith(model, axes, batch, seq) -> dict:
+    """Per-device bytes of one TP train step of a dense model (SwiGLU, no
+    MoE; ``qkv_bias`` or not) on ``axes`` (data D × model M), from the
+    model's dims alone.  The batch is whole on every shard
+    (``DEFAULT_RULES`` split it over ``(pod, data)``, and the mesh has no
+    pod); ``act`` is one (B, S, d) stream, ``act / M`` its SP slice.
+
+    * Weights: each leaf split over ``data`` is gathered per use (its
+      (d / D)-row or -column block of the local ``model`` columns or rows;
+      a layer's once more in remat's recompute) and its gradient, the
+      gathered slice in the leaf's dtype, reduce-scattered back; the
+      biases' and the norms' gradients (replicated over ``data``, the
+      norms over ``model`` too) all-reduced.
+    * Activations, without SP: the embedding's and each row-parallel
+      output's partial sums all-reduced over ``model`` in the forward,
+      again in the recompute (but for each super-group's last: a
+      recompute stops once it has restored what the backward saved) and
+      as the adjoint.  With SP: those reduce-scattered (operand ``act``)
+      and each sublayer's input all-gathered (operand ``act / M``), each
+      with its adjoint, and the stream gathered once for the loss.
+    * The loss: per slice of ``ce_chunk`` positions the (max, sum of
+      exponentials) all-gathered over ``model`` (forward, recompute) and
+      its adjoint reduce-scattered, the label's logit all-reduced three
+      times; the loss's two sums, the NLL sum's adjoint and the clip's
+      squared sum (f32 scalars)."""
+    cfg, dm = model.cfg, model.dm
+    D, M = axes["data"], axes["model"]
+    es = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    d, V, G, f = dm.d, dm.vocab, dm.groups, dm.f
+    qkv = dm.h * dm.hd + 2 * dm.kh * dm.hd
+    if cfg.family != "dense" or cfg.mlp_act != "swiglu" or \
+            any(n % M for n in (dm.h, dm.kh, f, V)) or d % D:
+        raise ValueError(f"_tp_train_arith: {cfg.name} on {axes}")
+    r = max(1, int(model.opts.get("remat_group", cfg.remat_group)))
+    r = r if G % r == 0 else 1
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    layer = (d // D) * (qkv + dm.h * dm.hd + 3 * f) // M * es
+    table = (V // M) * (d // D) * es                    # the embedding, head
+    out = {"all-gather": (again * G * layer + 2 * table) * (D > 1),
+           "reduce-scatter": D * (G * layer + 2 * table) * (D > 1),
+           "all-reduce": (G * ((qkv // M if cfg.qkv_bias else 0) + 2 * d)
+                          + d) * es}
+    act = batch * seq * d * es
+    redo = (2 * G - G // r) if again == 2 else 0       # reductions redone
+    if model.sp:
+        out["reduce-scatter"] += act * (1 + 2 * G + redo + 2 * G + 1)
+        out["all-gather"] += act // M * (1 + 2 * G * again + 2 * G + 1)
+    else:
+        out["all-reduce"] += act * (2 + 4 * G + redo)
+    c = min(int(model.opts.get("ce_chunk", 1024)), seq)
+    st = 2 * batch * c * 4
+    chunks = -(-seq // c)
+    out["all-gather"] += chunks * 2 * st
+    out["reduce-scatter"] += chunks * M * st
+    out["all-reduce"] += chunks * 3 * batch * c * 4 + 4 * 4
+    return out
+
+
 def phase_shard(seed, out: Path):
     """qwen1.5-4b's ZeRO-3 (FSDP-strategy) train step at S = 2 (data 2) and
-    S = 8 (data 4 × model 2) shards, all on the first card, at full width
-    and depth against its unsharded step and its micro-batch steps; the
-    2-layer f32 check; the dry-run's count of the S = 8 step's share
-    against the card's."""
+    S = 8 (data 4 × model 2) shards, and its TP-strategy step at (data 2,
+    model 4), all on the first card, at full width and depth against its
+    unsharded step and its micro-batch steps; the 2-layer f32 checks (the
+    ZeRO-3 step; the TP step of qwen1.5-4b and mamba2-780m; qwen1.5-4b's
+    ZeRO-1 step across pods); the dry-run's counts of the S = 8 and the TP
+    steps' shares against the card's, and the TP step's against the
+    arithmetic from the dims."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data.tokens import SyntheticTokenStream, TokenStreamConfig
     from repro_torch.models.lm import Model
-    from repro_torch.models.params import count_params
+    from repro_torch.models.params import count_params, numpy_params
     from repro_torch.parallel.fsdp import (StateLayout,
                                            build_sharded_train_step,
                                            init_sharded_state)
-    from repro_torch.parallel.sharding import (FSDP_RULES, make_act_sharder,
-                                               make_mesh)
+    from repro_torch.parallel.sharding import (DEFAULT_RULES, FSDP_RULES,
+                                               make_act_sharder, make_mesh)
     from repro_torch.training.train_step import (build_train_step,
                                                  init_train_state)
     t_phase = time.perf_counter()
@@ -3535,15 +3728,21 @@ def phase_shard(seed, out: Path):
     # the card steps
     dry_json = out / "shard_dryrun_s8.json"
     out.mkdir(parents=True, exist_ok=True)
-    dry = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         cfg.name, "--mesh", ",".join(f"{k}={v}" for k, v in
-                                      SHARD_MESHES[8].items()),
-         "--batch", str(SHARD_BATCH), "--seq", str(SHARD_SEQ),
-         "--opt", f"ce_chunk={SHARD_OPTS['ce_chunk']}", "--json",
-         str(dry_json)], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    tp_json = out / "shard_dryrun_tp.json"
+
+    def dry_count(axes, json_path, *opts):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cfg.name, "--mesh", ",".join(f"{k}={v}" for k, v in
+                                          axes.items()),
+             "--batch", str(SHARD_BATCH), "--seq", str(SHARD_SEQ),
+             "--opt", f"ce_chunk={SHARD_OPTS['ce_chunk']}", *opts, "--json",
+             str(json_path)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    dry = dry_count(SHARD_MESHES[8], dry_json)
+    dry_tp = dry_count(SHARD_TP, tp_json, "--opt", "strategy=tp", "--opt",
+                       "sp=1")
     try:
         batch = {k: torch.as_tensor(v, device=dev) for k, v in
                  SyntheticTokenStream(TokenStreamConfig(
@@ -3579,7 +3778,25 @@ def phase_shard(seed, out: Path):
                 lambda: init_sharded_state(smodel, mesh, gen()),
                 build_sharded_train_step(smodel, mesh, lr_schedule=sched), batch,
                 lambda sh: lay.unshard_tree([s["params"] for s in sh]))
-        cut = _shard_cut(seed, dev)
+        tmesh = make_mesh(SHARD_TP, [dev])
+        tmodel = Model(cfg, device=dev, mesh=tmesh, opts=SHARD_TP_OPTS,
+                       act_shard=make_act_sharder(tmesh, DEFAULT_RULES))
+        tlay = StateLayout(tmodel, tmesh, DEFAULT_RULES)
+        recs["TP"] = _shard_step(
+            f"TP {SHARD_TP}, SP",
+            lambda: init_sharded_state(tmodel, tmesh, gen(), DEFAULT_RULES),
+            build_sharded_train_step(tmodel, tmesh, DEFAULT_RULES,
+                                     lr_schedule=sched), batch,
+            lambda sh: tlay.unshard_tree([s["params"] for s in sh]), reps=1)
+        drawn = dict(numpy_params(_cut_cfg(cfg.name), seed))
+        cut = _shard_cut(seed, dev, drawn)
+        cut["qwen1.5-4b"] = _tp_cut(seed, dev, cfg.name, [
+            ("TP", SHARD_TP, DEFAULT_RULES),
+            ("ZeRO-1 across pods (TP rules)", SHARD_ZERO1, DEFAULT_RULES)],
+            drawn)
+        del drawn
+        cut["mamba2-780m"] = _tp_cut(seed, dev, "mamba2-780m",
+                                     [("TP", SHARD_TP, DEFAULT_RULES)])
 
         # what must hold, and the bounds
         u = recs["unsharded"]
@@ -3646,7 +3863,56 @@ def phase_shard(seed, out: Path):
                     raise AssertionError(f"[shard] S = {S}: {key} {d:.3e} "
                                          f"from the micro_batches={S} step, "
                                          f"beyond {SHARD_FLOOR:.3e}")
-        # the dry-run's share of the S = 8 step against the card's
+        # the TP step: its gradient norm and parameters within twice
+        # micro_batches=2's distance to the unsharded step (the phase's
+        # check form), its loss within TP_LOSS_REL; its bytes per device
+        # equal to the arithmetic from the dims
+        r, mref = recs["TP"], recs["micro2"]
+        c = {}
+        for key in ("loss", "grad_norm"):
+            d_ref = abs(mref[key] - u[key]) / abs(u[key])
+            c[key] = (abs(r[key] - u[key]) / abs(u[key]), d_ref,
+                      TP_LOSS_REL if key == "loss" else
+                      2 * max(d_ref, SHARD_FLOOR))
+        d_ref = _rel_to(mref["slices"], u["slices"], pre)
+        c["params"] = (_rel_to(r["slices"], u["slices"], pre), d_ref,
+                       2 * max(d_ref, SHARD_FLOOR))
+        checks["TP"] = c
+        arith = _tp_train_arith(tmodel, SHARD_TP, SHARD_BATCH, SHARD_SEQ)
+        coll = r["collectives"]
+        print(f"[shard] TP {SHARD_TP}, SP: {r['ms']:.1f} ms per step (host "
+              f"clock; {r['event_ms']:.1f} ms CUDA events) against the "
+              f"unsharded {u['ms']:.1f} ms and the bound {bound_ms:.1f} ms: "
+              f"{bound_ms / r['ms']:.3f} of the bound; peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB; per device {coll} (the "
+              f"arithmetic from the dims: {arith}); calls {r['calls']}")
+        for key, (d, d_ref, lim) in c.items():
+            print(f"[shard] TP: {key} {d:.3e} from the unsharded step "
+                  f"(relative), whose micro_batches=2 step is {d_ref:.3e} "
+                  f"from it (twice that, floored at {SHARD_FLOOR:.2e}: "
+                  f"{2 * max(d_ref, SHARD_FLOOR):.3e}): limit {lim:.3e}")
+        over = [key for key, (d, _, lim) in c.items() if not d <= lim]
+        if over:
+            raise AssertionError(f"[shard] TP: {over} beyond the limit")
+        if any(coll[k] != v for k, v in arith.items()):
+            raise AssertionError("[shard] the TP step's counted bytes differ "
+                                 "from the arithmetic from the dims")
+        # the dry-run's shares of the S = 8 and the TP steps against the
+        # card's
+        log_tp, _ = dry_tp.communicate(timeout=600)
+        if dry_tp.returncode != 0:
+            raise AssertionError(f"[shard] the TP dry-run count failed:\n"
+                                 f"{log_tp}")
+        got_tp = json.loads(tp_json.read_text())
+        print(f"[shard] dry-run share of the TP step on fakes "
+              f"({got_tp['seconds']:.1f} s on the host): collectives "
+              f"{got_tp['collectives']}, parameters {got_tp['param_bytes']} "
+              f"B per device; the card's step: {coll}, shard 0's blocks "
+              f"{r['shard0_param_bytes']} B")
+        if got_tp["collectives"] != coll or \
+                got_tp["param_bytes"] != r["shard0_param_bytes"]:
+            raise AssertionError("[shard] the TP dry-run's count differs "
+                                 "from the card's step")
         log, _ = dry.communicate(timeout=600)
         if dry.returncode != 0:
             raise AssertionError(f"[shard] the dry-run count failed:\n{log}")
@@ -3661,16 +3927,18 @@ def phase_shard(seed, out: Path):
                 got["param_bytes"] != card["shard0_param_bytes"]:
             raise AssertionError("[shard] the dry-run's count differs from the "
                                  "card's step")
-    finally:                        # the host count never outlives the phase
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
+    finally:                        # the host counts never outlive the phase
+        for p in (dry, dry_tp):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     wall = time.perf_counter() - t_phase
     for r in recs.values():
         r.pop("slices", None)
     print(f"[shard] phase done in {wall:.1f} s")
     return dict(recs=recs, checks={str(k): v for k, v in checks.items()},
-                cut=cut, dryrun=got, bound_ms=bound_ms, wall_s=wall)
+                cut=cut, dryrun=got, dryrun_tp=got_tp, tp_arith=arith,
+                bound_ms=bound_ms, wall_s=wall)
 
 
 def train_device_time(rec, seed):
@@ -3724,6 +3992,61 @@ def train_device_time(rec, seed):
           f"wall (the unprofiled step before it {walls[0]:.1f} ms; phase "
           f"train's timed steps' mean {rec['step_ms']:.1f} ms), {dms:.1f} ms "
           f"of device time, {launches:g} device launches: idle share "
+          f"{p['idle_share']:.3f}; the largest kernels' device ms: "
+          + "; ".join(f"{v:.1f} {k[:60]}" for k, v in top))
+
+
+def shard_tp_device_time(rec, seed):
+    """One step of the shard phase's TP step (qwen1.5-4b at SHARD_TP with
+    SHARD_TP_OPTS, 8 shards on the first card) under torch.profiler, after
+    the other
+    device-time readings have freed their models: the state is drawn
+    again here, then freed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.models.lm import Model
+    from repro_torch.parallel.fsdp import (build_sharded_train_step,
+                                           init_sharded_state)
+    from repro_torch.parallel.sharding import (DEFAULT_RULES,
+                                               make_act_sharder, make_mesh)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen1.5-4b")
+    mesh = make_mesh(SHARD_TP, [dev])
+    model = Model(cfg, device=dev, mesh=mesh, opts=SHARD_TP_OPTS,
+                  act_shard=make_act_sharder(mesh, DEFAULT_RULES))
+    box = {"state": init_sharded_state(
+        model, mesh, torch.Generator(device=dev).manual_seed(seed),
+        DEFAULT_RULES)}
+    step_fn = build_sharded_train_step(
+        model, mesh, DEFAULT_RULES,
+        lr_schedule=lambda step: torch.tensor(SHARD_LR, device=dev))
+    b = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokenStream(
+        TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=SHARD_SEQ,
+                          global_batch=SHARD_BATCH, seed=seed)
+    ).batch_at(0).items()}
+    walls = []                  # the warm-up step's, then the profiled's
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["state"] = step_fn(box["state"], b)[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    dms, launches, kernels = _device_ms(step, calls=1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    p = dict(wall_ms=walls[-1], warmup_wall_ms=walls[0], device_ms=dms,
+             launches_per_call=launches, idle_share=1.0 - dms / walls[-1],
+             top_kernels=[dict(name=k, ms=v) for k, v in top])
+    rec["probe"] = p
+    box.clear()
+    torch.cuda.empty_cache()
+    print(f"[shard] TP {SHARD_TP}: the profiled step {p['wall_ms']:.1f} ms of "
+          f"wall (the unprofiled step before it {walls[0]:.1f} ms; phase "
+          f"shard's timed step {rec['ms']:.1f} ms), {dms:.1f} ms of device "
+          f"time, {launches:g} device launches: idle share "
           f"{p['idle_share']:.3f}; the largest kernels' device ms: "
           + "; ".join(f"{v:.1f} {k[:60]}" for k, v in top))
 
@@ -3787,6 +4110,7 @@ def main() -> int:
     phase_device_times()
     for name in ("qwen1.5-4b", "mamba2-780m"):
         train_device_time(trained[name], args.seed)
+    shard_tp_device_time(sharded["recs"]["TP"], args.seed)
     for name, p in mesh["probes"].items():
         p["idle_share"] = 1.0 - p["device_ms"] / p["wall_ms"]
         print(f"[mesh] {name}: one batch {p['wall_ms']:.3f} ms of wall, "

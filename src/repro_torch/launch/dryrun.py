@@ -12,15 +12,19 @@ It needs no card: the mesh's devices are ``meta``
 its step (``ShardMesh.share``) under ``FakeTensorMode``, its products
 counted by ``FlopCounterMode`` and its collectives' per-device operand
 bytes by a ``CollectiveCounter`` (``launch.hlo_analysis``); the collectives
-stand in for the other shards.  Train cells run the FSDP strategy's
-sharded step (``parallel.fsdp``); prefill and decode cells the TP
-strategy's serving program (``parallel.tp``: Megatron heads and ``d_ff``
-over ``model``, weights FSDP over ``data``, the vocab-parallel head, a
-long-context cache's KV sequence over ``data``), a prefill's attention in
-the reference's analysis tiles (q and kv chunks of max(1024, seq / 8));
-``replica`` variants the replica rules' unsharded serving.  The multi-pod
-pass places and sizes every cell without counting it (the reference's
-production-only pass).
+stand in for the other shards.  Train cells run the sharded step
+(``parallel.fsdp.build_sharded_train_step``): the FSDP strategy's by
+default, the TP strategy's under ``strategy="tp"`` (a variant's, or
+``--opt strategy=tp`` of a ``--mesh`` count), its backward collectives
+counted; prefill and decode cells the TP strategy's serving program
+(``parallel.tp``: Megatron heads and ``d_ff`` over ``model``, weights FSDP
+over ``data``, the vocab-parallel head, a long-context cache's KV sequence
+over ``data``), a prefill's attention in the reference's analysis tiles (q
+and kv chunks of max(1024, seq / 8)); ``replica`` variants the replica
+rules' unsharded serving.  The multi-pod pass places and sizes every cell
+without counting it (the reference's production-only pass); a train
+cell's argument bytes are its share's state there, the moments at their
+ZeRO-1 blocks.
 
 Eager counting sees every layer and every recompute, so cells are counted
 at full depth (the reference extrapolates from two depths because XLA
@@ -81,6 +85,7 @@ VARIANTS = {
     "ssm512": {"opts": {"ssm_chunk": 512}},
     "ssm128": {"opts": {"ssm_chunk": 128}},
     "replica": {"opts": {"strategy": "replica"}},
+    "tp": {"opts": {"strategy": "tp"}},     # a train cell's TP step
     "ssd16": {"opts": {"ssd_dtype": "bfloat16"}},
     # composed hillclimb variants
     "llama4_opt": {"cfg": {"capacity_factor": 1.0},
@@ -143,8 +148,10 @@ def _share_batch(batch, cfg, kind, mesh, rules):
 
 def train_share(cfg, mesh, batch_shape, rules, plan=ShardPlan(), opts=None):
     """``build`` / ``run`` for ``count_program``: shard 0's share of the
-    FSDP-strategy step of ``cfg`` on ``mesh`` (its present shard is the
-    only one placed) at a global batch of ``batch_shape`` = (B, S)."""
+    sharded train step of ``cfg`` under ``rules`` (the FSDP or the TP
+    strategy's) on ``mesh`` (its present shard is the only one placed) at
+    a global batch of ``batch_shape`` = (B, S); ``build``'s bytes are the
+    share's state (the moments at their ZeRO-1 blocks) and batch."""
     share = mesh.share(0)
 
     def build():
@@ -255,14 +262,14 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str = "base",
                 n_params=cfg.n_params(), n_active=cfg.n_active_params())
     cell = Cell(cfg, shape, strategy, plan, meta,
                 _param_bytes(cfg, plan, mesh, rules))
-    if strategy == "tp":
+    if shape.kind == "train":              # either strategy's step
+        cell.build, cell.run = train_share(
+            cfg, mesh, (shape.global_batch, shape.seq_len), rules, plan, opts)
+    elif strategy == "tp":
         if shape.kind == "prefill":      # the reference's analysis tiles
             for k in ("q_chunk", "kv_chunk"):
                 opts.setdefault(k, max(1024, shape.seq_len // 8))
         cell.build, cell.run = _tp_share(cfg, shape, mesh, rules, plan, opts)
-    elif shape.kind == "train":
-        cell.build, cell.run = train_share(
-            cfg, mesh, (shape.global_batch, shape.seq_len), rules, plan, opts)
     else:
         cell.build, cell.run = _serve_share(cfg, shape, mesh, rules, plan,
                                             opts)
@@ -363,6 +370,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base",
                memory=dict(argument_bytes=cell.param_bytes),
                analytic_memory=am, model_flops=mf)
     if not analysis:
+        if shape.kind == "train":     # the state as the step places it
+            rec["memory"] = dict(argument_bytes=cell.build()[1],
+                                 param_bytes=cell.param_bytes)
         write(rec)
         if verbose:
             print(f"[dryrun] {tag}: placed (not counted); params "
@@ -395,11 +405,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base",
 
 def count_train(cfg, axes: dict, batch: int, seq: int, rules=None,
                 plan=ShardPlan(), opts=None) -> dict:
-    """Shard 0's share of the FSDP-strategy step of ``cfg`` on a meta mesh
+    """Shard 0's share of the sharded train step of ``cfg`` on a meta mesh
     of ``axes`` at a global batch of ``batch`` × ``seq``, counted: the
     ``count_program`` fields (its fake result dropped) and
-    ``param_bytes``, the shard's parameter blocks."""
-    rules = rules or STRATEGIES["fsdp"]
+    ``param_bytes``, the shard's parameter blocks.  The rules are
+    ``rules``, else the strategy of ``opts["strategy"]`` (default
+    ``"fsdp"``; ``"tp"``: the TP step)."""
+    opts = dict(opts or {})
+    rules = rules or STRATEGIES[opts.pop("strategy", "fsdp")]
     mesh = make_mesh(dict(axes), ["meta"])
     build, run = train_share(cfg, mesh, (batch, seq), rules, plan, opts)
     c = count_program(build, run)
@@ -433,7 +446,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--opt", action="append", default=[],
                     help="key=value: a Model option of the --mesh count "
-                         "(e.g. ce_chunk=256)")
+                         "(e.g. ce_chunk=256), or its strategy "
+                         "(strategy=tp: the TP step)")
     ap.add_argument("--json", type=Path)
     args = ap.parse_args(argv)
 
@@ -444,12 +458,13 @@ def main(argv=None):
             get_config(args.arch)
         opts = {k: int(v) if v.isdigit() else v
                 for k, v in (kv.split("=") for kv in args.opt)}
-        c = count_train(cfg, axes, args.batch, args.seq, opts=opts or None)
+        c = count_train(cfg, axes, args.batch, args.seq, opts=opts)
         c.update(arch=args.arch, mesh=axes, batch=args.batch, seq=args.seq)
         if args.json:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps(c, indent=1, default=float))
-        print(f"[dryrun] {args.arch} train share on {axes} at {args.batch} x "
+        print(f"[dryrun] {args.arch} {opts.get('strategy', 'fsdp')} train "
+              f"share on {axes} at {args.batch} x "
               f"{args.seq}: counted in {c['seconds']:.1f}s, "
               f"{c['flops']:.3e} flops/dev, collectives {c['collectives']}, "
               f"params {c['param_bytes']} B/dev")

@@ -9,7 +9,9 @@ loop over the groups where the reference scans.  ``loss`` is the training
 forward, differentiated by ``torch.autograd``; ``prefill`` builds the
 decode cache in the reference's stacked layout, leaf for leaf; ``decode``
 writes it in place (the reference donates it) and returns it.  Both run
-``_serve``, the serving walk that ``parallel.tp`` runs on a mesh's shards.
+``_serve``, the serving walk that ``parallel.tp`` runs on a mesh's shards;
+``loss`` runs ``_train_parts``, the training walk that both sharded steps
+(``parallel.fsdp``, ``parallel.tp``) run, each through its own hooks.
 """
 from __future__ import annotations
 
@@ -157,31 +159,19 @@ class Model(nn.Module):
             out += [("attn", f"attn{j}"), ("mlp", f"mlp{j}")]
         return out
 
-    def _sublayer(self, kind: str, x, p, positions, memory_kv=None):
-        """x after one sublayer of ``kind`` other than ``moe``, residual
-        included."""
-        cfg, dm = self.cfg, self.dm
-        ao = self._attn_opts
-        if kind == "attn":
-            return x + attn.self_attn_train(x, p, cfg, dm, positions, opts=ao)
-        if kind == "ssm":
-            return x + ssm_mod.mamba_train(x, p, cfg, dm,
-                                           opts=self._ssm_opts)
-        if kind == "mlp":
-            return _mlp_block(x, p, cfg)
-        if kind == "cross":
-            ckv = attn.cross_kv(memory_kv, p, cfg, dm)
-            return x + attn.cross_attn(x, ckv, p, cfg, dm, opts=ao)
-        raise ValueError(kind)
-
-    def _train_parts(self, fetch, batches, each, moe):
+    def _train_parts(self, h, batches):
         """The training forward of one or more batch parts (one for
-        ``loss``; one per present shard for the sharded step, which runs
-        this same walk group by group across its shards).  ``fetch(names,
-        g=None)``: for each part, a dict of the top-level parameter
-        ``names`` that exist (with ``g``, every leaf's g-th group slice);
-        ``each(fn, *lists)``: ``[fn(i, *items_i)]`` over the parts;
-        ``moe(xs, ps)``: (the parts' MoE outputs, aux).  Returns (each
+        ``loss``; one per present shard for the sharded steps, which run
+        this same walk group by group across their shards).  ``h`` holds
+        the hooks (``PartHooks`` for parts that each run whole sublayers,
+        ``parallel.tp``'s for the TP step): ``fetch(names, g=None)`` (for
+        each part, a dict of the top-level parameter ``names`` that exist;
+        with ``g``, every leaf's g-th group slice), ``each(fn, *lists)``
+        (``[fn(i, *items_i)]`` over the parts), ``embed``, one per sublayer
+        kind (``attn``, ``cross``, ``ssm_train``, ``mlp``, ``moe``: each
+        returns the parts' residual streams after it, ``moe`` also the
+        aux loss), ``enter`` / ``leave`` / ``act`` (a residual stream's
+        layout) and ``ce`` (each part's ``_ce_sums``).  Returns (each
         part's ``_ce_sums``, aux).
 
         The groups run in order, each super-group of ``remat_group`` groups
@@ -195,80 +185,76 @@ class Model(nn.Module):
         r = max(1, int(self.opts.get("remat_group", cfg.remat_group)))
         if G % r:
             r = 1
-        positions = each(lambda i, b: torch.arange(
+        positions = h.each(lambda i, b: torch.arange(
             b["tokens"].shape[1], device=b["tokens"].device)[None, :], batches)
-        memories = self._memories(fetch, batches, each)
+        memories = self._memories(h, batches, remat=True)
 
         def body(aux, g0: int, *xs):
             xs = list(xs)
             for g in range(g0, g0 + r):
-                pls = [p["blocks"] for p in fetch(("blocks",), g)]
+                pls = [p["blocks"] for p in h.fetch(("blocks",), g)]
                 ga = torch.zeros((), dtype=torch.float32, device=aux.device)
                 for kind, key in self._group_layers():
+                    ps = [p[key] for p in pls]
                     if kind == "moe":
-                        ys, a = moe(xs, [p[key] for p in pls])
-                        xs = [x + y for x, y in zip(xs, ys)]
+                        xs, a = h.moe(xs, ps)
                         ga = ga + a
+                    elif kind == "attn":
+                        xs, _ = h.attn(xs, ps, positions)
+                    elif kind == "cross":
+                        xs, _ = h.cross(xs, ps, memories)
+                    elif kind == "ssm":
+                        xs = h.ssm_train(xs, ps)
                     else:
-                        xs = each(lambda i, x, p, pos, mem: self._sublayer(
-                            kind, x, p[key], pos, mem),
-                            xs, pls, positions, memories)
-                xs = [self._sa(x, self._res_spec()) for x in xs]
+                        xs = h.mlp(xs, ps)
+                xs = h.act(xs)
                 aux = aux + ga
             return (aux, *xs)
 
         body = _remat(body, cfg.remat)
-        xs = each(lambda i, b, p: embed_tokens(b["tokens"], p["embed"]),
-                  batches, fetch(("embed",)))
+        xs = h.embed([b["tokens"] for b in batches])
         aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
         for g0 in range(0, G, r):
             aux, *xs = body(aux, g0, *xs)
-        xs = each(lambda i, x, p: norm(x, p, cfg.norm, "final_norm"),
-                  xs, fetch(("final_norm", "final_norm_b")))
-        heads = (fetch(("embed",)) if cfg.tie_embeddings
-                 else fetch(("lm_head",)))
-        return each(lambda i, x, h, b: self._ce_sums(self._head_matrix(h), x,
-                                                     b["labels"]),
-                    xs, heads, batches), aux
+        xs = h.each(lambda i, x, p: norm(x, p, cfg.norm, "final_norm"),
+                    xs, h.fetch(("final_norm", "final_norm_b")))
+        return h.ce(xs, batches), aux
 
     # ------------------------------------------------------------- encoder
-    def _memories(self, fetch, batches, each):
-        """Each part's frontend memory (``_train_parts``' arguments): the
-        encoder over its audio frames (encdec) or its projected image
-        patches (vlm); None otherwise."""
+    def _memories(self, h, parts, remat: bool = False):
+        """Each part's frontend memory: the encoder over its audio frames
+        (encdec, through ``h``'s sublayers; ``remat``: each layer
+        checkpointed, the training walk's) or its projected image patches
+        (vlm); None otherwise."""
         cfg, dm = self.cfg, self.dm
         if cfg.family not in ("encdec", "vlm"):
-            return [None] * len(batches)
+            return [None] * len(parts)
         key = "frames" if cfg.family == "encdec" else "patches"
-        xs = each(lambda i, b, p: (b[key] @ p["frontend_proj"]
-                                   if "frontend_proj" in p else b[key]
-                                   ).to(DTYPES[cfg.dtype]),
-                  batches, fetch(("frontend_proj",)))
+        xs = h.each(lambda i, b, p: (b[key] @ p["frontend_proj"]
+                                     if "frontend_proj" in p else b[key]
+                                     ).to(DTYPES[cfg.dtype]),
+                    parts, h.fetch(("frontend_proj",)))
         if cfg.family == "vlm":
             return xs
-        positions = each(lambda i, x: torch.arange(
+        positions = h.each(lambda i, x: torch.arange(
             x.shape[1], device=x.device)[None, :], xs)
 
-        def enc_layer(g: int, *xs):
-            pls = [p["enc_blocks"] for p in fetch(("enc_blocks",), g)]
-            return tuple(each(lambda i, h, p, pos: self._enc_group(h, p, pos),
-                              list(xs), pls, positions))
+        def layer(g: int, *xs):
+            pls = [p["enc_blocks"] for p in h.fetch(("enc_blocks",), g)]
+            xs, _ = h.attn(list(xs), [p["attn"] for p in pls], positions,
+                           causal=False)
+            return tuple(h.act(h.mlp(xs, [p["mlp"] for p in pls])))
 
-        body = _remat(enc_layer, cfg.remat)
+        body = _remat(layer, cfg.remat) if remat else layer
+        xs = h.enter(xs)
         for g in range(dm.enc_layers):
             xs = list(body(g, *xs))
-        return each(lambda i, x, p: norm(x, p, cfg.norm, "enc_final_norm"),
-                    xs, fetch(("enc_final_norm", "enc_final_norm_b")))
-
-    def _enc_group(self, h, pl, positions):
-        """One encoder layer (bidirectional self-attention, then the MLP)."""
-        cfg, dm = self.cfg, self.dm
-        h = h + attn.self_attn_train(h, pl["attn"], cfg, dm, positions,
-                                     causal=False, opts=self._attn_opts)
-        return self._sa(_mlp_block(h, pl["mlp"], cfg), self._res_spec())
+        xs = h.leave(xs)
+        return h.each(lambda i, x, p: norm(x, p, cfg.norm, "enc_final_norm"),
+                      xs, h.fetch(("enc_final_norm", "enc_final_norm_b")))
 
     def _local(self, params):
-        """``_train_parts``' fetch, each and moe for one part holding the
+        """``PartHooks``' fetch, each and moe for one part holding the
         whole tree ``params``."""
         def fetch(names, g=None):
             return [{n: params[n] if g is None else _group_slice(params[n], g)
@@ -286,8 +272,8 @@ class Model(nn.Module):
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """(ce + 0.01·aux, {"loss": ce, "aux": aux}) of a batch of
         ``tokens`` and ``labels`` (B, S); labels < 0 are not scored."""
-        fetch, each, moe = self._local(params)
-        [(tot, cnt)], aux = self._train_parts(fetch, [batch], each, moe)
+        h = PartHooks(self, *self._local(params))
+        [(tot, cnt)], aux = self._train_parts(h, [batch])
         ce = tot / torch.clamp_min(cnt, 1.0)
         total = ce + 0.01 * aux
         return total, {"loss": ce, "aux": aux}
@@ -389,32 +375,6 @@ class Model(nn.Module):
             cache[name] = v.new_empty(lead + tuple(v.shape))
         self._slot(_group(cache, g), name, j).copy_(v)
 
-    def _serve_memories(self, h, parts):
-        """Each part's frontend memory for the serving walk: the encoder
-        (encdec, through ``h``'s sublayers) or the projected image patches
-        (vlm); None otherwise."""
-        cfg, dm = self.cfg, self.dm
-        if cfg.family not in ("encdec", "vlm"):
-            return [None] * len(parts)
-        key = "frames" if cfg.family == "encdec" else "patches"
-        xs = h.each(lambda i, b, p: (b[key] @ p["frontend_proj"]
-                                     if "frontend_proj" in p else b[key]
-                                     ).to(DTYPES[cfg.dtype]),
-                    parts, h.fetch(("frontend_proj",)))
-        if cfg.family == "vlm":
-            return xs
-        positions = h.each(lambda i, x: torch.arange(
-            x.shape[1], device=x.device)[None, :], xs)
-        xs = h.enter(xs)
-        for g in range(dm.enc_layers):
-            pls = [p["enc_blocks"] for p in h.fetch(("enc_blocks",), g)]
-            xs, _ = h.attn(xs, [p["attn"] for p in pls], positions,
-                           causal=False)
-            xs = h.act(h.mlp(xs, [p["mlp"] for p in pls]))
-        xs = h.leave(xs)
-        return h.each(lambda i, x, p: norm(x, p, cfg.norm, "enc_final_norm"),
-                      xs, h.fetch(("enc_final_norm", "enc_final_norm_b")))
-
     def _serve(self, h, parts, cache_len: Optional[int] = None,
                caches=None, cur_len: Optional[int] = None):
         """The serving walk over one or more batch parts: a prefill (with
@@ -425,7 +385,8 @@ class Model(nn.Module):
         / ``act`` (a residual stream's layout), ``embed``, one per sublayer
         kind (``attn``, ``attn_decode``, ``ssm``, ``ssm_decode``,
         ``cross``, ``cross_decode``, ``mlp``, ``moe``: each returns the
-        parts' residual streams after it) and ``logits``.  ``_Whole`` runs
+        parts' residual streams after it, ``moe`` with its aux loss) and
+        ``logits``.  ``_Whole`` runs
         the whole tree on its device (``prefill`` / ``decode``);
         ``parallel.tp`` runs the per-shard blocks of a mesh.  Returns (the
         parts' caches, ``h.logits``)."""
@@ -434,7 +395,7 @@ class Model(nn.Module):
         if decode:
             xs = h.embed([b["token"][:, None] for b in parts])
         else:
-            memories = self._serve_memories(h, parts)
+            memories = self._memories(h, parts)
             xs = h.embed([b["tokens"] for b in parts])
             positions = h.each(lambda i, b: torch.arange(
                 b["tokens"].shape[1], device=b["tokens"].device)[None, :],
@@ -477,7 +438,7 @@ class Model(nn.Module):
                 elif kind == "mlp":
                     xs = h.mlp(xs, ps)
                 else:
-                    xs = h.moe(xs, ps)
+                    xs, _ = h.moe(xs, ps)
             xs = h.act(xs)
         xs = h.each(lambda i, x, p: norm(x, p, cfg.norm, "final_norm"),
                     xs, h.fetch(("final_norm", "final_norm_b")))
@@ -503,37 +464,78 @@ class Model(nn.Module):
         return logits, cache
 
 
-class _Whole:
-    """``Model._serve``'s hooks for one part holding the whole parameter
-    tree on its device: each sublayer is the reference's, residual added."""
+class PartHooks:
+    """``Model._train_parts``' hooks for parts that each run whole
+    sublayers: ``Model.loss``'s one part with the whole tree, or the FSDP
+    step's shards with their gathered weights.  ``fetch`` / ``each`` as
+    ``_train_parts`` takes them; ``moe(xs, ps)`` -> (the parts' MoE
+    outputs, aux).  Each sublayer is the reference's, residual added."""
 
-    def __init__(self, model: Model, params):
-        self.m, self.params = model, params
-        self.cfg, self.dm = model.cfg, model.dm
-
-    def fetch(self, names, g=None):
-        return [{n: self.params[n] if g is None
-                 else _group_slice(self.params[n], g)
-                 for n in names if n in self.params}]
-
-    def each(self, fn, *lists):
-        return [fn(0, *(lst[0] for lst in lists))]
+    def __init__(self, model: Model, fetch, each, moe):
+        self.m, self.cfg, self.dm = model, model.cfg, model.dm
+        self.fetch, self.each, self._moe = fetch, each, moe
 
     def enter(self, xs):
         return xs
 
     leave = enter
-    act = enter
+
+    def act(self, xs):
+        return [self.m._sa(x, self.m._res_spec()) for x in xs]
 
     def embed(self, toks):
-        return [embed_tokens(toks[0], self.params["embed"])]
+        return self.each(lambda i, t, p: embed_tokens(t, p["embed"]), toks,
+                         self.fetch(("embed",)))
 
     def attn(self, xs, ps, positions, causal=True, cache_len=None):
+        """Full-sequence self-attention (the encoder's with ``causal``
+        False); (streams, None)."""
+        cfg, dm, ao = self.cfg, self.dm, self.m._attn_opts
+        return self.each(lambda i, x, p, pos: x + attn.self_attn_train(
+            x, p, cfg, dm, pos, causal=causal, opts=ao),
+            xs, ps, positions), None
+
+    def cross(self, xs, ps, memories):
+        cfg, dm, ao = self.cfg, self.dm, self.m._attn_opts
+        ckv = self.each(lambda i, mem, p: attn.cross_kv(mem, p, cfg, dm),
+                        memories, ps)
+        return self.each(lambda i, x, kv, p: x + attn.cross_attn(
+            x, kv, p, cfg, dm, opts=ao), xs, ckv, ps), ckv
+
+    def ssm_train(self, xs, ps):
+        return self.each(lambda i, x, p: x + ssm_mod.mamba_train(
+            x, p, self.cfg, self.dm, opts=self.m._ssm_opts), xs, ps)
+
+    def mlp(self, xs, ps):
+        return self.each(lambda i, x, p: _mlp_block(x, p, self.cfg), xs, ps)
+
+    def moe(self, xs, ps):
+        ys, a = self._moe(xs, ps)
+        return [x + y for x, y in zip(xs, ys)], a
+
+    def ce(self, xs, batches):
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return self.each(lambda i, x, h, b: self.m._ce_sums(
+            self.m._head_matrix(h), x, b["labels"]),
+            xs, self.fetch((key,)), batches)
+
+
+class _Whole(PartHooks):
+    """``Model._serve``'s hooks for one part holding the whole parameter
+    tree on its device: each sublayer is the reference's, residual added."""
+
+    def __init__(self, model: Model, params):
+        super().__init__(model, *model._local(params))
+        self.params = params
+
+    def act(self, xs):
+        return xs
+
+    def attn(self, xs, ps, positions, causal=True, cache_len=None):
+        if cache_len is None:                 # the encoder's
+            return super().attn(xs, ps, positions, causal)
         cfg, dm, ao = self.cfg, self.dm, self.m._attn_opts
         x, p, pos = xs[0], ps[0], positions[0]
-        if cache_len is None:                 # the encoder's
-            return [x + attn.self_attn_train(x, p, cfg, dm, pos, causal=causal,
-                                             opts=ao)], None
         o, (k, v) = attn.self_attn_prefill(x, p, cfg, dm, pos, opts=ao)
         pad = cache_len - x.shape[1]
         if pad:
@@ -559,22 +561,9 @@ class _Whole:
         convs[0].copy_(conv)
         return [xs[0] + o]
 
-    def cross(self, xs, ps, memories):
-        ck, cv = attn.cross_kv(memories[0], ps[0], self.cfg, self.dm)
-        return [xs[0] + attn.cross_attn(xs[0], (ck, cv), ps[0], self.cfg,
-                                        self.dm, opts=self.m._attn_opts)], \
-            [(ck, cv)]
-
     def cross_decode(self, xs, ps, cks, cvs):
         return [xs[0] + attn.cross_decode(xs[0], ps[0], self.cfg, self.dm,
                                           cks[0], cvs[0])]
-
-    def mlp(self, xs, ps):
-        return [_mlp_block(xs[0], ps[0], self.cfg)]
-
-    def moe(self, xs, ps):
-        return [xs[0] + moe_ffn(xs[0], ps[0], self.cfg, self.dm,
-                                self.m.mesh)[0]]
 
     def logits(self, xs):
         return self.m._logits(self.params, xs[0][:, -1])

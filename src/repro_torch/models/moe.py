@@ -38,8 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import norm
 from repro_torch.models.params import ModelDims
-from repro_torch.parallel.sharding import (ShardMesh, all_reduce, all_to_all,
-                                          on_device)
+from repro_torch.parallel.sharding import (PLAIN, Collectives, ShardMesh,
+                                           on_device)
 
 
 def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
@@ -126,13 +126,15 @@ def token_axes(mesh: ShardMesh, t: int):
     return ()
 
 
-def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh):
+def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh,
+               coll: Collectives = PLAIN):
     """The reference's ``shard_map`` body on every present shard of
     ``mesh``: ``toks[i]`` (T_i, D) the i-th present shard's tokens on its
     device, ``ws[i]`` its ``router`` / ``w_in`` / ``w_gate`` / ``w_out``
     (all E experts, or under EP its own E/G).  Returns (the shards' (T_i,
     D) outputs, the aux loss averaged over the shards, on the first
-    present shard's device)."""
+    present shard's device).  ``coll``: the expert exchange's and the
+    aux's collectives (``ADJOINT`` counts their backward)."""
     names = ("w_in", "w_gate", "w_out")
     axis = ep_axis(mesh, e)
     devs = [mesh.devices[s] for s in mesh.present]
@@ -157,7 +159,8 @@ def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh):
             gates_l.append(gates)
             auxs.append(a)
         # (E, C, D) per shard -> (E/G, G·C, D) at each expert owner
-        owned = all_to_all(bufs, mesh, split_dim=0, concat_dim=1, axis=axis)
+        owned = coll.all_to_all(bufs, mesh, split_dim=0, concat_dim=1,
+                                axis=axis)
         outs = []
         for i, (s, w, dev) in enumerate(zip(mesh.present, ws, devs)):
             r = mesh.coords(s)[axis]
@@ -165,7 +168,8 @@ def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh):
                 outs.append(_expert_ffn(owned[i], *(
                     w[n] if w[n].shape[0] != e else torch.chunk(w[n], G)[r]
                     for n in names)))
-        back = all_to_all(outs, mesh, split_dim=1, concat_dim=0, axis=axis)
+        back = coll.all_to_all(outs, mesh, split_dim=1, concat_dim=0,
+                               axis=axis)
         ys = []
         for i, dev in enumerate(devs):
             with on_device(dev):
@@ -173,7 +177,7 @@ def moe_shards(toks, ws, k: int, cf: float, e: int, mesh: ShardMesh):
                                    toks[i].shape[0]))
     # pmean: the shards' aux summed over the mesh, over the shard count
     # (a share stands in for the absent shards with its own)
-    tot = all_reduce([a.reshape(1) for a in auxs], mesh)[0].reshape(())
+    tot = coll.all_reduce([a.reshape(1) for a in auxs], mesh)[0].reshape(())
     return ys, tot / torch.tensor(float(len(mesh.present)), device=tot.device)
 
 

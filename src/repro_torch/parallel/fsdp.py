@@ -1,15 +1,24 @@
-"""The FSDP-strategy (ZeRO-3) sharded train step: the reference's
-``build_train_step`` under ``jax.jit`` with ``in_shardings = (state_sh,
-bsh)`` from ``tree_shardings`` (``launch/dryrun.py:129-148``), on the
-port's single-controller ``ShardMesh``.
+"""The sharded train step: the reference's ``build_train_step`` under
+``jax.jit`` with ``in_shardings = (state_sh, bsh)`` from ``tree_shardings``
+(``launch/dryrun.py:129-148``), on the port's single-controller
+``ShardMesh``.  Under the FSDP strategy's rules it is the ZeRO-3 step this
+module describes; under rules that map ``"tp"`` (``DEFAULT_RULES``) the
+same step runs the TP strategy's walk (``parallel.tp.TrainHooks``:
+Megatron splits over ``model``, weights gathered over ``data`` only).
 
 Placement.  Each parameter leaf is split by ``spec_for_logical`` under the
 rules (``FSDP_RULES`` by default): shard s holds its block on
 ``mesh.devices[s]``; a dim that does not divide stays whole, so the leaf is
 replicated over the axes its spec leaves out.  The moments take the ZeRO-1
 rules (``"fsdp"`` → ``rules["fsdp+"]``), which place them with their
-parameters on every mesh without a ``pod`` axis; the step refuses a layout
-that would not.  A sharded state is a list of per-shard states, each
+parameters on every mesh without a ``pod`` axis; across pods they split
+further (ZeRO-1): such a leaf's gradient is reduce-scattered to the
+moments' blocks, each owner updates that slice of the parameter (gathered
+from the parameter's blocks), and the updated slices are all-gathered
+back into the parameter's blocks.  A moment split apart from its
+parameter on a dim the compute keeps split cannot be updated by its owner:
+the step refuses that layout.  A sharded state is a list of per-shard
+states, each
 ``{"params", "opt": {"m", "v", "step"}}`` of the shard's blocks
 (``shard_state`` / ``unshard_state`` move between the two layouts, so a
 checkpoint written from either restores into the other).
@@ -30,7 +39,8 @@ The step, for every present shard of the mesh:
 * the gradients reach their owners by ``reduce_scatter`` (summed in f32:
   the owners' gradient blocks are f32, as the micro-batch step's
   accumulator is), and a leaf replicated over some axes gets the
-  ``all_reduce`` of those axes on top;
+  ``all_reduce`` of those axes on top (the moments' blocks and axes for a
+  ZeRO-1 leaf);
 * the global clip norm is an ``all_reduce`` of per-shard squared sums, a
   replicated block counted on one of its holders only;
 * AdamW runs on each owner's blocks; weight decay is decided by the whole
@@ -40,18 +50,21 @@ On ``mesh.share(s)`` the same code runs one device's share of the step
 (the dry-run): the collectives stand in for the absent shards."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.models.lm import PartHooks
 from repro_torch.models.moe import moe_ffn_shards
 from repro_torch.models.params import DTYPES, logical_axes
-from repro_torch.parallel.sharding import (FSDP_RULES, ActSharder, ShardMesh,
-                                           all_gather, all_reduce,
-                                           batch_logical, block_slices,
-                                           on_device, reduce_scatter,
-                                           spec_axes, spec_for_logical)
+from repro_torch.parallel.sharding import (ADJOINT, FSDP_RULES, PLAIN,
+                                           ActSharder, ShardMesh, all_gather,
+                                           all_reduce, batch_logical,
+                                           block_slices, on_device,
+                                           reduce_scatter, spec_axes,
+                                           spec_for_logical)
 from repro_torch.training.optim import adamw_update, cosine_schedule
 
 Path = Tuple[str, ...]
@@ -95,6 +108,35 @@ def fsdp_gathered(path: Path, logical, spec) -> Tuple[int, ...]:
     dim (each shard runs its own experts, ``models.moe``)."""
     return tuple(i for i, (e, name) in enumerate(zip(spec, logical))
                  if e is not None and name != "expert")
+
+
+#: an SSM's leaves whose ``model`` blocks do not line up with its heads
+_SSM_WHOLE = ("w_in", "conv_w", "conv_b")
+
+
+def _ssm_whole(path: Path) -> bool:
+    return len(path) > 1 and path[-2].startswith("ssm") and \
+        path[-1] in _SSM_WHOLE
+
+
+def tp_gathered(path: Path, logical, spec) -> Tuple[int, ...]:
+    """The TP strategy's compute (``parallel.tp``): the dims it gathers.  A
+    ``model`` dim stays split, except in an SSM's ``w_in`` / ``conv_w`` /
+    ``conv_b`` (gathered whole, the shard takes its heads' columns) and in
+    an expert leaf, which keeps only its expert dim split (EP; replicated
+    experts otherwise, ``d_ff`` whole)."""
+    split = [i for i, e in enumerate(spec) if e is not None]
+    if "expert" in logical:
+        return tuple(i for i in split if logical[i] != "expert")
+    if _ssm_whole(path):
+        return tuple(split)
+    return tuple(i for i in split if "model" not in spec_axes(spec[i]))
+
+
+def is_tp(rules) -> bool:
+    """Whether ``rules`` are a TP strategy's (they split the ``"tp"``
+    logical axis)."""
+    return bool(rules.get("tp"))
 
 
 def _place(path: Path, logical, shape, mesh: ShardMesh, rules,
@@ -162,31 +204,79 @@ class TreeLayout:
         return out
 
 
+def _n_blocks(place: LeafPlace, mesh: ShardMesh) -> int:
+    return math.prod(mesh.shape[a] for e in place.spec for a in spec_axes(e))
+
+
 class StateLayout(TreeLayout):
     """Every train-state leaf's placement on ``mesh`` under ``rules``:
-    ``params`` the parameters' places (also the gradients'), ``moments``
-    the moments' (ZeRO-1 rules: ``"fsdp"`` → ``rules["fsdp+"]``)."""
+    ``params`` the parameters' places, ``moments`` the moments' (also
+    where the step reduces each gradient to and updates it): the ZeRO-1
+    rules' place (``"fsdp"`` → ``rules["fsdp+"]``) where it splits a leaf
+    into more blocks than its parameter's, across pods (the ``zero1``
+    leaves), else the parameter's, as the reference's own sharded-step
+    test places them (``DEFAULT_RULES``' ``("pod", "data")`` resolves to
+    no split without a pod axis).  The compute gathers by the strategy's
+    rule (``tp_gathered`` under TP rules, else ``fsdp_gathered``)."""
 
     def __init__(self, model, mesh: ShardMesh, rules=FSDP_RULES):
         lax_tree = logical_axes(model.cfg, model.plan)
         shapes = model.param_shapes()
-        super().__init__(lax_tree, shapes, mesh, rules)
+        gathered = tp_gathered if is_tp(rules) else fsdp_gathered
+        super().__init__(lax_tree, shapes, mesh, rules, gathered)
         self.params = self.places
         zrules = dict(rules)              # ZeRO-1 across pods for opt state
         zrules["fsdp"] = rules["fsdp+"]
-        self.moments = TreeLayout(lax_tree, shapes, mesh, zrules).places
+        zplaces = TreeLayout(lax_tree, shapes, mesh, zrules, gathered).places
+        self.moments = {p: zplaces[p] if _n_blocks(zplaces[p], mesh)
+                        > _n_blocks(pl, mesh) else pl
+                        for p, pl in self.params.items()}
+        self.zero1 = tuple(p for p in self.params
+                           if self.params[p].spec != self.moments[p].spec)
         self.opt_dtype = model.cfg.opt_dtype
 
+    def scatter_dims(self, path: Path) -> List[Tuple[int, Tuple]]:
+        """(dim, mesh axes) of every dim that the compute holds whole and
+        the gradient's place splits: a gradient is reduce-scattered over
+        them, in reverse order, to its owners."""
+        pl, tg = self.params[path], self.moments[path]
+        return [(d, tg.spec[d]) for d in range(len(pl.shape))
+                if tg.spec[d] is not None
+                and (d in pl.gather_dims or pl.spec[d] is None)]
+
     def check_step(self) -> None:
-        """The sharded step updates each owner's blocks in place: every
-        moment must lie with its parameter."""
-        bad = [p for p in self.params
-               if self.params[p].spec != self.moments[p].spec]
+        """Each moment's owner must be able to update it: on every dim the
+        compute keeps split, the moment has its parameter's split."""
+        bad = []
+        for p in self.zero1:
+            pl, ml = self.params[p], self.moments[p]
+            if any(ml.spec[d] != e for d, e in enumerate(pl.spec)
+                   if e is not None and d not in pl.gather_dims):
+                bad.append(p)
         if bad:
             raise NotImplementedError(
                 f"build_sharded_train_step: the moments of {bad[:3]} are "
-                f"sharded apart from their parameters (ZeRO-1 across a pod "
-                f"axis); the sharded step needs them together")
+                f"sharded apart from their parameters on a dim the step "
+                f"keeps split ({[self.moments[p].spec for p in bad[:3]]} "
+                f"against {[self.params[p].spec for p in bad[:3]]})")
+
+    def sub_block(self, full: torch.Tensor, path: Path, s: int):
+        """Shard ``s``'s block of the moments' place, from the compute's
+        block ``full`` of the leaf (its parameter gathered)."""
+        for d, axes in self.scatter_dims(path):
+            axes = spec_axes(axes)
+            n = full.shape[d] // math.prod(self.mesh.shape[a] for a in axes)
+            full = full.narrow(d, self.mesh.index_on(s, axes) * n, n)
+        return full
+
+    def param_block(self, full: torch.Tensor, path: Path, s: int):
+        """Shard ``s``'s parameter block, from the compute's block."""
+        pl = self.params[path]
+        for d in pl.gather_dims:
+            axes = spec_axes(pl.spec[d])
+            n = full.shape[d] // math.prod(self.mesh.shape[a] for a in axes)
+            full = full.narrow(d, self.mesh.index_on(s, axes) * n, n)
+        return full
 
     def shard(self, state: Dict) -> List[Dict]:
         """A state -> one state of blocks per present shard, each block a
@@ -227,8 +317,9 @@ def init_sharded_state(model, mesh: ShardMesh, generator: torch.Generator,
                        rules=FSDP_RULES) -> List[Dict]:
     """``init_train_state``'s parameters (drawn on ``model.device`` with
     ``generator``) split over the mesh, leaf by leaf so the whole tree and
-    its blocks never coexist beyond one leaf; zero moments in
-    ``cfg.opt_dtype`` and a zero step on every shard."""
+    its blocks never coexist beyond one leaf; zero moments (of the
+    moments' blocks) in ``cfg.opt_dtype`` and a zero step on every
+    shard."""
     lay = StateLayout(model, mesh, rules)
     params = model.init(generator)
     out = [{"params": {}, "opt": {"m": {}, "v": {}, "step": torch.zeros(
@@ -239,11 +330,13 @@ def init_sharded_state(model, mesh: ShardMesh, generator: torch.Generator,
         leaf = _get(params, path)
         for i, s in enumerate(mesh.present):
             dev = mesh.devices[s]
-            blk = leaf[lay.block(pl, s)].to(dev, copy=True)
-            _set(out[i]["params"], path, blk)
+            _set(out[i]["params"], path,
+                 leaf[lay.block(pl, s)].to(dev, copy=True))
+            mshape = tuple(b.stop - b.start for b in lay.block(
+                lay.moments[path], s))
             for k in ("m", "v"):
                 _set(out[i]["opt"][k], path, torch.zeros(
-                    tuple(blk.shape), dtype=mdt, device=dev))
+                    mshape, dtype=mdt, device=dev))
         _set(params, path, None)            # free the whole leaf
         del leaf
     return out
@@ -300,13 +393,16 @@ def gather_blocks(blocks, place: LeafPlace, mesh: ShardMesh,
 
 class _LeafGather:
     """One leaf's gather on a mesh (``_Gather``'s forward and backward);
-    ``sinks[i]`` is the present shard i's f32 gradient block (``index``:
-    the group slice of a stacked leaf)."""
+    ``sinks[i]`` is the present shard i's f32 gradient block (of
+    ``lay.moments``' place; ``index``: the group slice of a stacked
+    leaf)."""
 
-    def __init__(self, place: LeafPlace, mesh: ShardMesh, sinks, index):
-        self.place, self.mesh, self.sinks, self.index = place, mesh, sinks, index
+    def __init__(self, lay: StateLayout, path: Path, sinks, index):
+        self.place, self.mesh = lay.params[path], lay.mesh
+        self.sinks, self.index = sinks, index
         off = 0 if index is None else 1       # a group slice drops dim 0
-        self.steps = [(d - off, place.spec[d]) for d in place.gather_dims]
+        self.steps = [(d - off, axes) for d, axes in lay.scatter_dims(path)]
+        self.replicated = lay.moments[path].replicated
 
     def forward(self, blocks):
         with torch.no_grad():
@@ -323,8 +419,8 @@ class _LeafGather:
             for dim, axes in reversed(self.steps):
                 parts = reduce_scatter(parts, self.mesh, axes, dim=dim,
                                        dtype=torch.float32)
-            if self.place.replicated:
-                parts = all_reduce(parts, self.mesh, self.place.replicated,
+            if self.replicated:
+                parts = all_reduce(parts, self.mesh, self.replicated,
                                    dtype=torch.float32)
             for sink, g in zip(self.sinks, parts):
                 tgt = sink if self.index is None else sink[self.index]
@@ -343,7 +439,13 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
     unsharded step's; the metrics have its keys (``loss``, ``aux``,
     ``grad_norm``, ``lr``, ``step``), on the first present shard's
     device.  ``keep_grads``: the metrics also hold ``grads``, each
-    shard's f32 gradient blocks before the clip (a copy)."""
+    shard's f32 gradient blocks (of ``StateLayout.moments``' places)
+    before the clip (a copy).
+
+    Under TP rules (``is_tp``) the walk is ``parallel.tp``'s and every
+    collective of the forward, its backward included, is counted
+    (``ADJOINT``); the model must be built on ``mesh`` (``TPServe``'s
+    checks apply).  A layout the step cannot run raises."""
     lr_schedule = lr_schedule or cosine_schedule
     lay = StateLayout(model, mesh, rules)
     lay.check_step()
@@ -351,6 +453,14 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
     present = mesh.present
     devs = [mesh.devices[s] for s in present]
     dev0 = devs[0]
+    tp = is_tp(rules)
+    coll = ADJOINT if tp else PLAIN
+    if tp:
+        from repro_torch.parallel.tp import TPServe, TrainHooks
+        if model.mesh != mesh:
+            raise ValueError("build_sharded_train_step: a TP step runs on "
+                             "the mesh its Model was built with")
+        prog = TPServe(model, rules)
 
     def on_shards(fn, *lists):
         out = []
@@ -358,6 +468,29 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
             with on_device(dev):
                 out.append(fn(i, *(lst[i] for lst in lists)))
         return out
+
+    def update_zero1(shards, path, grads, scale, lr):
+        """A ZeRO-1 leaf: each owner's slice of the parameter (gathered
+        from the parameter's blocks) updated with its moments and its
+        gradient block ``grads[i]``, the slices all-gathered back into
+        the parameter's blocks."""
+        with torch.no_grad():
+            full = gather_blocks([_get(sh["params"], path) for sh in shards],
+                                 lay.params[path], mesh)
+            sl = [lay.sub_block(f, path, s).clone()
+                  for f, s in zip(full, present)]
+            del full
+            for i, sh in enumerate(shards):
+                g = grads[i].mul_(scale.to(devs[i]))
+                adamw_update({"p": sl[i]}, {"p": g},
+                             {"m": {"p": _get(sh["opt"]["m"], path)},
+                              "v": {"p": _get(sh["opt"]["v"], path)},
+                              "step": sh["opt"]["step"]}, lr.to(devs[i]))
+            for d, axes in lay.scatter_dims(path):
+                sl = all_gather(sl, mesh, axis=axes, dim=d)
+            for i, (sh, s) in enumerate(zip(shards, present)):
+                _get(sh["params"], path).copy_(
+                    lay.param_block(sl[i], path, s))
 
     def train_step(shards: List[Dict], batch: Dict):
         if len(shards) != len(present):
@@ -367,16 +500,16 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
         bparts = split_batch(batch, cfg, mesh, rules)
         if isinstance(model._sa, ActSharder):
             model._sa.global_sizes = {"batch": B}
-        sinks = {path: [torch.zeros(tuple(_get(sh["params"], path).shape),
-                                    dtype=torch.float32, device=dev)
-                        for sh, dev in zip(shards, devs)]
-                 for path in lay.params}
+        sinks = {path: [torch.zeros(
+            tuple(b.stop - b.start for b in lay.block(lay.moments[path], s)),
+            dtype=torch.float32, device=dev) for s, dev in zip(present, devs)]
+            for path in lay.params}
         dummy = torch.zeros((), device=dev0, requires_grad=True)
 
         def gather(path: Path, index: Optional[int] = None):
             """The leaf at ``path`` (its ``index``-th group slice) on every
             present shard."""
-            g = _LeafGather(lay.params[path], mesh, sinks[path], index)
+            g = _LeafGather(lay, path, sinks[path], index)
             blocks = [_get(sh["params"], path) for sh in shards]
             if index is not None:
                 blocks = [b[index] for b in blocks]
@@ -392,11 +525,14 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
                         _set(t, path, w)
             return trees
 
-        sums, aux = model._train_parts(
-            fetch, bparts, on_shards,
-            lambda xs, ps: moe_ffn_shards(xs, ps, cfg, dm, mesh))
-        tot = all_reduce([t.reshape(1) for t, _ in sums], mesh)[0]
-        cnt = all_reduce([c.reshape(1) for _, c in sums], mesh)[0]
+        if tp:
+            h = TrainHooks(prog, fetch, B)
+        else:
+            h = PartHooks(model, fetch, on_shards,
+                          lambda xs, ps: moe_ffn_shards(xs, ps, cfg, dm, mesh))
+        sums, aux = model._train_parts(h, bparts)
+        tot = coll.all_reduce([t.reshape(1) for t, _ in sums], mesh)[0]
+        cnt = coll.all_reduce([c.reshape(1) for _, c in sums], mesh)[0]
         ce = (tot / torch.clamp_min(cnt, 1.0)).reshape(()).to(dev0)
         aux = aux.to(dev0)
         total = ce + 0.01 * aux
@@ -407,7 +543,7 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
         sq = []
         for i, s in enumerate(present):
             acc = torch.zeros((), dtype=torch.float32, device=devs[i])
-            for path, pl in lay.params.items():
+            for path, pl in lay.moments.items():
                 if lay.holds_once(pl, s):
                     acc = acc + torch.sum(torch.square(sinks[path][i]))
             sq.append(acc.reshape(1))
@@ -425,12 +561,21 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
         new = []
         for i, sh in enumerate(shards):
             sc = scale.to(devs[i])
-            grads = {}
+            grads, params, m, v = {}, {}, {}, {}
             for path in lay.params:
+                if path in lay.zero1:
+                    continue
                 _set(grads, path, sinks[path][i].mul_(sc))
-            params, opt = adamw_update(sh["params"], grads, sh["opt"],
-                                       lr.to(devs[i]))
-            new.append({"params": params, "opt": opt})
+                for tree, src in ((params, sh["params"]),
+                                  (m, sh["opt"]["m"]), (v, sh["opt"]["v"])):
+                    _set(tree, path, _get(src, path))
+            _, opt = adamw_update(params, grads, {
+                "m": m, "v": v, "step": sh["opt"]["step"]}, lr.to(devs[i]))
+            new.append({"params": sh["params"], "opt": {
+                "m": sh["opt"]["m"], "v": sh["opt"]["v"],
+                "step": opt["step"]}})
+        for path in lay.zero1:
+            update_zero1(shards, path, sinks[path], scale, lr)
         metrics = dict(loss=ce.detach(), aux=aux.detach(), grad_norm=gn,
                        lr=lr, step=new[0]["opt"]["step"].float())
         if kept is not None:
@@ -438,4 +583,3 @@ def build_sharded_train_step(model, mesh: ShardMesh, rules=FSDP_RULES, *,
         return new, metrics
 
     return train_step
-

@@ -8,9 +8,12 @@ in-body collectives.  Here one process holds a ``ShardMesh``, one
 ``{name: size}``, shards in row-major coordinate order); ``shard_map``
 runs a per-shard body on its shard's device, and the collectives take one
 tensor per shard.  The copies are ``Tensor.to``, so autograd runs back
-through them.  Shards are placed round-robin over the devices, so S shards
-may share one card (they then run back to back on its current stream) or
-spread over several.
+through them uncounted; the ``ADJOINT`` forms (``grad_all_gather``, ...)
+are ``torch.autograd.Function``s whose backward runs the adjoint
+collective through the same counted functions, so a counter sees a train
+step's backward bytes too.  Shards are placed round-robin over the
+devices, so S shards may share one card (they then run back to back on its
+current stream) or spread over several.
 
 The logical-axis layer is the reference's, rule for rule: every tensor
 carries a tuple of *logical* axis names (one per dim), and
@@ -417,6 +420,84 @@ def all_to_all(parts: Sequence[torch.Tensor], mesh: ShardMesh,
                     [pieces.get(s, stand)[r].to(dev) for s in g],
                     dim=concat_dim)
     return out
+
+
+# ------------------------------------------ collectives with a backward
+class _Adjoint(torch.autograd.Function):
+    """``fwd(parts)`` with ``bwd(grads)`` as its backward: one collective
+    and its adjoint, both counted.  The outputs are distinct views (shards
+    of a group on one device share a result), so each shard's gradient
+    reaches the backward on its own; a missing gradient is zeros."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *parts):
+        ctx.bwd = bwd
+        ctx.ins = [(p.dtype, p.device) for p in parts]
+        outs = fwd(list(parts))
+        ctx.outs = [(o.shape, o.dtype, o.device) for o in outs]
+        return tuple(o.clone() if any(o is p for p in parts) else
+                     o.view_as(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = [g if g is not None else torch.zeros(shp, dtype=dt, device=dev)
+              for g, (shp, dt, dev) in zip(grads, ctx.outs)]
+        with torch.no_grad():
+            ins = ctx.bwd(gs)
+        return (None, None) + tuple(g.to(dev, dt)
+                                    for g, (dt, dev) in zip(ins, ctx.ins))
+
+
+def grad_all_gather(parts, mesh: ShardMesh, axis, dim: int = 0):
+    """``all_gather`` over ``axis``; backward: ``reduce_scatter`` of the
+    gradients over ``axis`` (every copy's gradient summed to its source)."""
+    return list(_Adjoint.apply(
+        lambda ps: all_gather(ps, mesh, axis=axis, dim=dim),
+        lambda gs: reduce_scatter(gs, mesh, axis, dim=dim), *parts))
+
+
+def grad_reduce_scatter(parts, mesh: ShardMesh, axis, dim: int = 0,
+                        dtype: Optional[torch.dtype] = None):
+    """``reduce_scatter``; backward: ``all_gather`` of the blocks'
+    gradients over ``axis``."""
+    return list(_Adjoint.apply(
+        lambda ps: reduce_scatter(ps, mesh, axis, dim=dim, dtype=dtype),
+        lambda gs: all_gather(gs, mesh, axis=axis, dim=dim), *parts))
+
+
+def grad_all_reduce(parts, mesh: ShardMesh, axis=None,
+                    dtype: Optional[torch.dtype] = None):
+    """``all_reduce``; backward: ``all_reduce`` of the gradients (every
+    member's sum feeds every member's result)."""
+    return list(_Adjoint.apply(
+        lambda ps: all_reduce(ps, mesh, axis, dtype=dtype),
+        lambda gs: all_reduce(gs, mesh, axis), *parts))
+
+
+def grad_all_to_all(parts, mesh: ShardMesh, split_dim: int, concat_dim: int,
+                    axis=None):
+    """``all_to_all``; backward: the reverse ``all_to_all`` (the slices
+    sent back along the swapped dims)."""
+    return list(_Adjoint.apply(
+        lambda ps: all_to_all(ps, mesh, split_dim, concat_dim, axis=axis),
+        lambda gs: all_to_all(gs, mesh, concat_dim, split_dim, axis=axis),
+        *parts))
+
+
+@dataclass(frozen=True)
+class Collectives:
+    """One set of the four collectives: ``PLAIN`` (autograd through the
+    copies, backward uncounted: the serving program, the FSDP step) or
+    ``ADJOINT`` (each backward the counted adjoint: the TP train step)."""
+    all_gather: Callable
+    reduce_scatter: Callable
+    all_reduce: Callable
+    all_to_all: Callable
+
+
+PLAIN = Collectives(all_gather, reduce_scatter, all_reduce, all_to_all)
+ADJOINT = Collectives(grad_all_gather, grad_reduce_scatter, grad_all_reduce,
+                      grad_all_to_all)
 
 
 # ------------------------------------------------------- logical-axis layer

@@ -2,7 +2,9 @@
 on the per-shard blocks of a ``ShardMesh`` under ``DEFAULT_RULES``, the
 counterpart of what GSPMD derives for the reference from those rules
 (``jax.jit(model.prefill)`` / ``model.decode`` with ``tree_shardings`` of
-the parameters and ``cache_logical`` of the cache).
+the parameters and ``cache_logical`` of the cache); and the same
+sublayers as the hooks of its train step (``TrainHooks``, run by
+``parallel.fsdp.build_sharded_train_step`` under TP rules).
 
 Placement.  Every parameter and cache leaf is split by ``spec_for_logical``
 (``parallel.fsdp.TreeLayout``, the layout code of the FSDP step): weights
@@ -68,42 +70,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_rope, mlp, norm
 from repro_torch.models.moe import moe_shards, token_axes
 from repro_torch.models.params import logical_axes
-from repro_torch.parallel.fsdp import (Path, TreeLayout, _get, gather_blocks,
-                                       split_batch)
-from repro_torch.parallel.sharding import (DEFAULT_RULES, ActSharder,
-                                           all_gather, all_reduce,
-                                           cache_logical, on_device,
-                                           reduce_scatter, spec_axes,
+from repro_torch.parallel.fsdp import (TreeLayout, _get, _ssm_whole,
+                                       gather_blocks, split_batch,
+                                       tp_gathered)
+from repro_torch.parallel.sharding import (ADJOINT, DEFAULT_RULES, PLAIN,
+                                           ActSharder, cache_logical,
+                                           on_device, spec_axes,
                                            spec_for_logical)
-
-#: an SSM's leaves whose ``model`` blocks do not line up with its heads
-_SSM_WHOLE = ("w_in", "conv_w", "conv_b")
-
-
-def _ssm_whole(path: Path) -> bool:
-    return len(path) > 1 and path[-2].startswith("ssm") and \
-        path[-1] in _SSM_WHOLE
-
-
-def tp_gathered(path: Path, logical, spec) -> Tuple[int, ...]:
-    """The TP program's fetch: the dims a compute gathers.  A ``model``
-    dim stays split, except in an SSM's ``w_in`` / ``conv_w`` / ``conv_b``
-    (gathered whole, the shard takes its heads' columns) and in an expert
-    leaf, which keeps only its expert dim split (EP; replicated experts
-    otherwise, ``d_ff`` whole)."""
-    split = [i for i, e in enumerate(spec) if e is not None]
-    if "expert" in logical:
-        return tuple(i for i in split if logical[i] != "expert")
-    if _ssm_whole(path):
-        return tuple(split)
-    return tuple(i for i in split if "model" not in spec_axes(spec[i]))
-
 
 class TPServe:
     """The TP serving program of ``model`` (a ``Model`` built with its
@@ -231,13 +211,16 @@ class TPServe:
 
 
 class _Hooks:
-    """``Model._serve``'s hooks for one TP call on the present shards."""
+    """``Model._serve``'s hooks for one TP call on the present shards
+    (``coll``: the collectives, ``PLAIN`` for serving)."""
 
-    def __init__(self, prog: TPServe, shards: Sequence[Dict], B: int):
-        self.p, self.shards, self.B = prog, list(shards), B
+    def __init__(self, prog: TPServe, shards: Sequence[Dict], B: int,
+                 coll=PLAIN):
+        self.p, self.B, self.c = prog, B, coll
+        self.shards = list(shards or ())
         self.m, self.cfg, self.dm = prog.model, prog.cfg, prog.dm
         mesh = self.mesh = prog.mesh
-        if len(self.shards) != len(mesh.present):
+        if shards is not None and len(self.shards) != len(mesh.present):
             raise ValueError(f"TPServe: {len(self.shards)} shard trees for "
                              f"{len(mesh.present)} present shards")
         self.devs = [mesh.devices[s] for s in mesh.present]
@@ -301,7 +284,7 @@ class _Hooks:
         """The stream's whole sequence (SP: all-gathered over its axis)."""
         if self.sp_axis is None:
             return xs
-        return all_gather(xs, self.mesh, axis=self.sp_axis, dim=1)
+        return self.c.all_gather(xs, self.mesh, axis=self.sp_axis, dim=1)
 
     def _reduce(self, ys):
         """The row-parallel partial sums over ``model``: all-reduced, or
@@ -309,8 +292,8 @@ class _Hooks:
         if self.p.M == 1:
             return ys
         if self.sp_axis is not None:
-            return reduce_scatter(ys, self.mesh, self.sp_axis, dim=1)
-        return all_reduce(ys, self.mesh, "model")
+            return self.c.reduce_scatter(ys, self.mesh, self.sp_axis, dim=1)
+        return self.c.all_reduce(ys, self.mesh, "model")
 
     def _add(self, xs, ys):
         return [x + y for x, y in zip(xs, self._reduce(ys))]
@@ -337,13 +320,13 @@ class _Hooks:
             return torch.where(ok[..., None], rows, torch.zeros_like(rows))
         ys = self.each(lookup, toks, ws)
         if self.sp_axis is not None:
-            return reduce_scatter(ys, self.mesh, self.sp_axis, dim=1)
-        return all_reduce(ys, self.mesh, "model")
+            return self.c.reduce_scatter(ys, self.mesh, self.sp_axis, dim=1)
+        return self.c.all_reduce(ys, self.mesh, "model")
 
     def logits(self, xs):
         if self.sp_axis is not None:          # the last position's owner
-            last = all_gather([x[:, -1:] for x in xs], self.mesh,
-                              axis=self.sp_axis, dim=1)
+            last = self.c.all_gather([x[:, -1:] for x in xs], self.mesh,
+                                     axis=self.sp_axis, dim=1)
             xl = [x[:, -1] for x in last]
         else:
             xl = [x[:, -1] for x in xs]
@@ -358,9 +341,9 @@ class _Hooks:
             sa.global_sizes = {"batch": self.B, "tp": pl.shape[0 if tie else 1]}
             loc = [sa(t, ("batch", "tp")) for t in loc]
         if "model" in spec_axes(pl.spec[0 if tie else 1]):
-            loc = all_gather(loc, self.mesh, axis="model", dim=-1)
+            loc = self.c.all_gather(loc, self.mesh, axis="model", dim=-1)
         if self.bax:
-            loc = all_gather(loc, self.mesh, axis=self.bax, dim=0)
+            loc = self.c.all_gather(loc, self.mesh, axis=self.bax, dim=0)
         return loc[0]
 
     # ---------------------------------------------------------- attention
@@ -398,8 +381,8 @@ class _Hooks:
                 for s in self.mesh.present]
         parts = self.each(lambda i, x, p, k, v: _decode_partial(
             x, p, cfg, dl, k, v, cur_len, offs[i]), xs, ps, ks, vs)
-        stats = all_gather([st[None] for st in parts], self.mesh,
-                           axis=self.kv_axes, dim=0)
+        stats = self.c.all_gather([st[None] for st in parts], self.mesh,
+                                  axis=self.kv_axes, dim=0)
         hd = dl.hd
 
         def merge(i, st, x, p):
@@ -451,16 +434,16 @@ class _Hooks:
         n = math.prod(mesh.shape[a] for a in rest)
         toks = [torch.chunk(h, n)[mesh.index_on(sh, rest)] if rest else h
                 for h, sh in zip(hs, mesh.present)]
-        ys, _ = moe_shards(toks, ps, cfg.moe_top_k, cfg.capacity_factor,
-                           dm.e, mesh)
+        ys, aux = moe_shards(toks, ps, cfg.moe_top_k, cfg.capacity_factor,
+                             dm.e, mesh, self.c)
         if rest:
-            ys = all_gather(ys, mesh, axis=rest, dim=0)
+            ys = self.c.all_gather(ys, mesh, axis=rest, dim=0)
         ys = [y.reshape(b, s, d) for y in ys]
         if self.sp_axis is not None:          # back to this rank's slice
             k = s // mesh.shape[self.sp_axis]
             ys = [y.narrow(1, mesh.index_on(sh, spec_axes(self.sp_axis)) * k, k)
                   for y, sh in zip(ys, mesh.present)]
-        return [x + y for x, y in zip(xs, ys)]
+        return [x + y for x, y in zip(xs, ys)], aux
 
     # --------------------------------------------------------------- SSM
     def _ssm_cols(self, i: int, p: Dict) -> Dict:
@@ -511,7 +494,7 @@ class _Hooks:
             ys = self.each(lambda i, g, p: ssm_mod.rmsnorm(g, p["out_norm"]),
                            gs, ps)
         else:
-            sq = all_reduce(self.each(lambda i, g: torch.sum(
+            sq = self.c.all_reduce(self.each(lambda i, g: torch.sum(
                 torch.square(g.float()), dim=-1, keepdim=True), gs),
                 self.mesh, "model")
             di = float(self.dm.d_inner)
@@ -519,6 +502,14 @@ class _Hooks:
                 g.float() * torch.rsqrt(q / di + 1e-5)
                 * p["out_norm"].float()).to(g.dtype), gs, sq, ps)
         return self.each(lambda i, y, p: y @ p["w_out"], ys, ps)
+
+    def ssm_train(self, xs, ps):
+        """The SSM sublayer over the shards' heads, no decode state."""
+        cfg, so = self.cfg, self.m._ssm_opts
+        gs = self.each(lambda i, x, p: ssm_mod.mamba_gated(
+            x, self._ssm_cols(i, p), cfg, self.p.dsl, opts=so)[0],
+            self._full(xs), ps)
+        return self._add(xs, self._out(gs, ps))
 
     def ssm(self, xs, ps):
         cfg, so = self.cfg, self.m._ssm_opts
@@ -533,7 +524,8 @@ class _Hooks:
 
     def ssm_decode(self, xs, ps, sts, convs):
         cfg = self.cfg
-        full = (all_gather(convs, self.mesh, axis=self.conv_axes, dim=-1)
+        full = (self.c.all_gather(convs, self.mesh, axis=self.conv_axes,
+                                  dim=-1)
                 if self.conv_axes else convs)
         di, n = self.dm.d_inner, self.dm.ssm_n
         dil = di // self.p.M
@@ -552,6 +544,101 @@ class _Hooks:
         for c, (_, blk) in zip(convs, res):
             c.copy_(blk)
         return self._add(xs, self._out([g for g, _ in res], ps))
+
+
+class TrainHooks(_Hooks):
+    """``Model._train_parts``' hooks for the TP train step
+    (``parallel.fsdp.build_sharded_train_step`` under TP rules): the
+    serving program's sublayers with ``ADJOINT`` collectives, so every
+    forward collective's adjoint runs, counted, in backward.  ``fetch`` is
+    the step's (the weights gathered over ``data`` inside the checkpointed
+    region, their gradients reduce-scattered back to the owners).
+
+    Each shard's copy of a replicated activation is its own tensor, so a
+    collective's backward is its adjoint: a row-parallel ``all_reduce``'s
+    is an ``all_reduce`` of the shards' partial gradients (what the
+    Megatron pair, identity here and an ``all_reduce`` at the next
+    column-parallel input, moves too), and a leaf replicated over
+    ``model`` (the norms, the router) collects a partial gradient on each
+    rank, all-reduced over ``model`` by the step.  The loss sums are
+    all-reduced over the whole mesh, each ``model`` rank's copy of its
+    tokens' NLL included: the rank count cancels in the ratio."""
+
+    def __init__(self, prog: TPServe, fetch, B: int):
+        super().__init__(prog, None, B, ADJOINT)
+        self.fetch = fetch
+
+    def ce(self, xs, batches):
+        """Each shard's (summed token NLL, scored-token count) of its batch
+        block: the whole sequence (SP left), then the vocab-parallel cross
+        entropy in slices of ``ce_chunk`` positions, each checkpointed
+        across the shards so its f32 logits are recomputed in backward.
+        Each ``model`` rank scores its vocab block; per token the ranks'
+        (max, sum of exponentials) are all-gathered and merged and the
+        label's logit comes from the rank that owns its row by an
+        ``all_reduce``; padded columns (>= ``cfg.vocab_size``) are masked.
+        A head whose vocab is not split runs the unsharded ``_ce_sums``."""
+        cfg, m = self.cfg, self.m
+        xs = self.leave(xs)
+        tie = cfg.tie_embeddings
+        key = "embed" if tie else "lm_head"
+        heads = [m._head_matrix(h) for h in self.fetch((key,))]
+        pl = self.p.layout.places[(key,)]
+        if "model" not in spec_axes(pl.spec[0 if tie else 1]):
+            return self.each(lambda i, x, h, b: m._ce_sums(h, x, b["labels"]),
+                             xs, heads, batches)
+        n = len(xs)
+        s = xs[0].shape[1]
+        c = min(int(m.opts.get("ce_chunk", 1024)), s)
+        pad = (-s) % c
+        labels = [b["labels"] for b in batches]
+        if pad:
+            xs = [F.pad(x, (0, 0, 0, pad)) for x in xs]
+            labels = [F.pad(lb, (0, pad), value=-1) for lb in labels]
+        nv = heads[0].shape[1]
+
+        def chunk(*args):
+            xc, lc, hd = args[:n], args[n:2 * n], args[2 * n:]
+
+            def local(i, x, h, lb):
+                lg = x.float() @ h.to(x.dtype).float()          # (b, c, nv)
+                col = self.rank[i] * nv + torch.arange(nv, device=x.device)
+                lg = torch.where(col >= cfg.vocab_size, -1e30, lg)
+                mx = lg.amax(dim=-1).detach()
+                se = torch.exp(lg - mx[..., None]).sum(dim=-1)
+                loc = lb.long() - self.rank[i] * nv
+                own = (loc >= 0) & (loc < nv)
+                gold = torch.gather(lg, -1,
+                                    torch.where(own, loc, 0)[..., None])[..., 0]
+                return (torch.stack([mx, se])[None],
+                        torch.where(own, gold, 0.0))
+            loc = self.each(local, xc, hd, lc)
+            st = self.c.all_gather([t for t, _ in loc], self.mesh,
+                                   axis="model", dim=0)
+            gold = self.c.all_reduce([g for _, g in loc], self.mesh, "model")
+
+            def merge(i, st, gold, lb):
+                mx = st[:, 0].detach()                          # (M, b, c)
+                top = mx.amax(dim=0)
+                lse = top + torch.log(torch.sum(
+                    st[:, 1] * torch.exp(mx - top), dim=0))
+                valid = (lb >= 0).float()
+                return (torch.sum((lse - gold) * valid).reshape(()),
+                        torch.sum(valid))
+            out = self.each(merge, st, gold, lc)
+            return tuple(t for pair in out for t in pair)
+
+        sums = [(torch.zeros((), dtype=torch.float32, device=x.device),
+                 torch.zeros((), dtype=torch.float32, device=x.device))
+                for x in xs]
+        for j in range(xs[0].shape[1] // c):
+            args = ([x[:, j * c:(j + 1) * c] for x in xs]
+                    + [lb[:, j * c:(j + 1) * c] for lb in labels] + heads)
+            got = checkpoint(chunk, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+            sums = [(t + got[2 * i], k + got[2 * i + 1])
+                    for i, (t, k) in enumerate(sums)]
+        return sums
 
 
 def _decode_partial(x1, p, cfg, dm, ck, cv, cur_len: int, off: int):

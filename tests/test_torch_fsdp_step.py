@@ -24,10 +24,12 @@ import torch
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models.lm import Model
-from repro_torch.models.params import numpy_params, params_from_reference
+from repro_torch.models.params import (ShardPlan, numpy_params,
+                                       params_from_reference)
 from repro_torch.parallel.fsdp import (StateLayout, build_sharded_train_step,
                                        shard_state, unshard_state)
-from repro_torch.parallel.sharding import (FSDP_RULES, CollectiveCounter,
+from repro_torch.parallel.sharding import (DEFAULT_RULES, FSDP_RULES,
+                                           CollectiveCounter,
                                            make_act_sharder, make_mesh)
 from repro_torch.training.optim import adamw_init
 from repro_torch.training.train_step import build_train_step
@@ -208,9 +210,20 @@ def test_sharded_checkpoints_cross_layouts(tmp_path):
 
 
 def test_sharded_step_refuses_moments_apart_from_parameters():
-    """On a mesh with a pod axis the ZeRO-1 rules put the moments over
-    (pod, data, model) and the parameters over (data, model)."""
+    """Moments sharded apart from their parameters on a dim the step keeps
+    split cannot be updated by their owners, and the step refuses them:
+    TP rules whose ZeRO-1 axes take ``model`` for the ``fsdp`` dim leave a
+    column-parallel weight's moments without its ``model`` split.  The
+    ZeRO-1 layout across pods (moments over (pod, data, model), parameters
+    over (data, model)) is one the step runs
+    (``tests/test_torch_zero1_step.py``)."""
     cfg = _cfg("qwen1.5-4b")
     mesh = make_mesh({"pod": 2, "data": 2, "model": 2}, ["cpu"])
-    with pytest.raises(NotImplementedError, match="pod"):
-        build_sharded_train_step(Model(cfg, device="cpu"), mesh)
+    rules = dict(DEFAULT_RULES, **{"fsdp+": ("pod", "model", "data")})
+    model = Model(cfg, ShardPlan(tp=2, fsdp=2, dp=2), mesh=mesh,
+                  device="cpu", act_shard=make_act_sharder(mesh, rules))
+    with pytest.raises(NotImplementedError, match="apart"):
+        build_sharded_train_step(model, mesh, rules)
+    pods = make_mesh({"pod": 2, "data": 2, "model": 2}, ["cpu"])
+    assert StateLayout(Model(cfg, device="cpu"), pods).zero1
+    build_sharded_train_step(Model(cfg, device="cpu"), pods)
