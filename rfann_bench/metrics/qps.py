@@ -1,0 +1,6 @@
+"""Queries answered in the window over the window's seconds (host clock)."""
+
+
+def read(ctx):
+    w = ctx.window
+    return w.answered / w.seconds if w.seconds > 0 else None
