@@ -2,27 +2,32 @@
 """Where one search batch's wall time goes on the card, hop by hop.
 
     python3 benchmarks/hop_profile_torch.py [--src DIR] [--n 1000000]
+        [--plan auto|graph] [--ef 64] [--batch 64]
 
 Imports ``repro_torch`` from ``--src`` (default: this tree's ``src``), so
 the same script reads a parent tree unpacked beside this one.  Builds
 ``chip_smoke.py``'s full-phase index (n × 128 from ``--seed``, the
 ``build_rnsg`` defaults, 1,000 queries of the mixed workload), then for the
-f32 paths (bw 1, kernels) and (bw 4, kernels) at ``plan="auto"``, k=10,
-ef=64, batches of 64:
+f32 paths (bw 1, kernels) and (bw 4, kernels) at ``--plan`` (``auto``),
+k=10, ``--ef`` (64), batches of ``--batch`` (64):
 
 * every batch once untimed, then every batch again with a ``QueryTrace``:
   resolve / plan / dispatch / stitch wall per batch, and inside dispatch
   the wall of each ``beam_search_batch`` call (host clock, synchronised);
 * batch ``--batch-index`` (all graph-routed at the default) three more
-  times: its beam wall, lockstep hops (the gather launches of that call, or
-  the longest lane's hops where the loop is one kernel) and per-hop wall;
-* the same batch once under ``torch.profiler`` (CPU + CUDA activities):
-  device time per kernel name, the gather kernels' device time, the host
-  time of the ``.any()`` syncs (``aten::_local_scalar_dense``, which waits
-  for the queued device work) and of every other op;
-* the host cost of one ``torch.profiler.record_function`` span with no
-  profiler session (the substrate opens one per dispatched partition),
-  before any profiler session of the process.
+  times, traced: its beam wall and, from the fused beam's launch records
+  on the ``dispatch`` span (the kernel's traced instantiation), its hops,
+  one hop's time inside its block (Σ block time over Σ hops) and the hop
+  loop's cycles by phase; a tree without the records prints none;
+* the same batch once under ``torch.profiler`` (CPU + CUDA activities),
+  traced: device time per kernel name, the beam kernels' device time
+  beside the launches' span by the blocks' own stamps (max exit − min
+  entry, ``%globaltimer``), the host time of the ``.any()`` syncs
+  (``aten::_local_scalar_dense``, which waits for the queued device work)
+  and of every other op;
+* the host cost of one ``obs.annotate`` span with no profiler session
+  (the substrate opens one per dispatched partition, and ``QueryTrace``
+  one per span), before any profiler session of the process.
 
 Prints one line per measurement and, last, one JSON object (also written
 to ``chiprun_out/hop_profile.json``).  Needs one CUDA card.
@@ -52,6 +57,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from rfann_bench import beamrec  # noqa: E402
+
 PATHS = [("bw1_kernel", 1), ("bw4_kernel", 4)]
 
 
@@ -62,6 +70,9 @@ def main() -> int:
     ap.add_argument("--nq", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch-index", type=int, default=0)
+    ap.add_argument("--plan", default="auto", choices=("auto", "graph"))
+    ap.add_argument("--ef", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--stream", action="store_true",
                     help="profile StreamingRFANN.search (this tree only)")
     args = ap.parse_args()
@@ -76,7 +87,7 @@ def main() -> int:
     from repro_torch.core.rfann import RNSGIndex
     from repro_torch.data.ann import make_attrs, make_vectors, mixed_workload
     from repro_torch.kernels import ops
-    from repro_torch.obs import QueryTrace
+    from repro_torch.obs import QueryTrace, annotate
     from repro_torch.planner import SCAN
     sync = torch.cuda.synchronize
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -111,17 +122,20 @@ def main() -> int:
     reps = 20000
     t1 = time.perf_counter()
     for _ in range(reps):
-        with torch.profiler.record_function("rnsg.scan_dispatch"):
+        with annotate("rnsg.scan_dispatch"):
             pass
     span_us = (time.perf_counter() - t1) / reps * 1e6
-    print(f"[hop] record_function span, no session: {span_us:.3f} us")
-    batches = [(lo, qv[lo:lo + 64], ranges[lo:lo + 64])
-               for lo in range(0, args.nq, 64)]
+    print(f"[hop] annotate span, no session: {span_us:.3f} us")
+    b = args.batch
+    batches = [(lo, qv[lo:lo + b], ranges[lo:lo + b])
+               for lo in range(0, args.nq, b)]
     bi = args.batch_index
     result = dict(card=card, n=args.n, nq=args.nq, src=args.src,
-                  batch_index=bi, record_function_us=span_us, paths={})
+                  batch_index=bi, plan=args.plan, ef=args.ef, batch=b,
+                  annotate_us=span_us, paths={})
     for name, bw in PATHS:
-        kw = dict(k=10, ef=64, plan="auto", beam_width=bw, use_kernel=True)
+        kw = dict(k=10, ef=args.ef, plan=args.plan, beam_width=bw,
+                  use_kernel=True)
         idx.planner.cost.load_state_dict(json.loads(built))
         for _, q_b, r_b in batches:                       # warm, untimed
             idx.search(q_b, r_b, **kw)
@@ -148,24 +162,30 @@ def main() -> int:
         for _ in range(3):
             beam_walls.clear()
             ops.reset_launches()
-            res = idx.search(q_b, r_b, **kw)
+            tr = QueryTrace()
+            idx.search(q_b, r_b, trace=tr, **kw)
             launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-            lock = sum(v for k, v in launches.items()
-                       if k.startswith(("gather_dist", "gather_topk")))
-            hops = lock or int(np.max(res.stats["hops"]))
-            reps.append(dict(beam_ms=sum(beam_walls) * 1e3, hops=hops,
-                             launches=launches,
-                             max_lane_hops=int(np.max(res.stats["hops"]))))
+            reps.append(dict(beam_ms=sum(beam_walls) * 1e3,
+                             launches=launches, record=beam_records(tr)))
         beam_ms = float(np.median([r["beam_ms"] for r in reps]))
-        hops = reps[0]["hops"]
-        print(f"[hop] {name} batch {bi}: beam wall {beam_ms:.3f} ms over "
-              f"{hops} hops ({beam_ms / max(hops, 1):.4f} ms per hop); "
+        rec = reps[0]["record"]
+        print(f"[hop] {name} batch {bi}: beam wall {beam_ms:.3f} ms; "
               f"launches {reps[0]['launches']}")
+        for i, r in enumerate(x["record"] for x in reps):
+            print(f"[hop] {name} batch {bi} run {i}: "
+                  + ("no beam record (a tree without the traced beam)"
+                     if r is None else
+                     f"{r['hops'] / max(r['queries'], 1):.1f} hops per "
+                     f"query, {r['hop_us']:.4f} us per hop inside its block; "
+                     "cycles " + " ".join(f"{p} {v:.4f}" for p, v
+                                          in r["shares"].items())))
         beam_walls.clear()
+        tr = QueryTrace()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p:
-            idx.search(q_b, r_b, **kw)
+            idx.search(q_b, r_b, trace=tr, **kw)
         prof_wall = sum(beam_walls) * 1e3
+        prof_rec = beam_records(tr)
         rows = p.key_averages()
         # the substrate's spans (rnsg.*) come back as device-side user
         # annotations that cover the kernels they enclose: not kernels
@@ -178,26 +198,26 @@ def main() -> int:
                        e.self_cpu_time_total / 1e3) for e in rows),
                      key=lambda r: -r[3])
         device_ms = sum(v["device_ms"] for v in kern.values())
-        gather_ms = sum(v["device_ms"] for k, v in kern.items()
-                        if "gather_dist_kernel" in k
-                        or "topk_block_kernel" in k
-                        or "beam_" in k)
+        beam_dev_ms = sum(v["device_ms"] for k, v in kern.items()
+                          if "beam_kernel" in k)
         sync_ms = sum(r[2] for r in cpu
                       if r[0] == "aten::_local_scalar_dense")
+        stamps_ms = None if prof_rec is None else prof_rec["span_ms"]
         prof = dict(beam_wall_ms=prof_wall, device_ms=device_ms,
-                    gather_device_ms=gather_ms, sync_ms=sync_ms,
-                    other_host_ms=prof_wall - sync_ms,
+                    beam_device_ms=beam_dev_ms, stamps_span_ms=stamps_ms,
+                    sync_ms=sync_ms, other_host_ms=prof_wall - sync_ms,
                     kernels=kern,
                     top_cpu=[dict(op=r[0], count=r[1], total_ms=r[2],
                                   self_ms=r[3]) for r in cpu[:30]])
         print(f"[hop] {name} batch {bi} profiled: beam wall "
               f"{prof_wall:.3f} ms, device busy {device_ms:.3f} ms "
               f"(idle share {1 - device_ms / max(prof_wall, 1e-9):.3f}), "
-              f"gather kernels {gather_ms:.3f} ms, .any() syncs "
-              f"{sync_ms:.3f} ms, other host {prof_wall - sync_ms:.3f} "
-              f"ms; per hop: gather {gather_ms / max(hops, 1):.4f}, sync "
-              f"{sync_ms / max(hops, 1):.4f}, other "
-              f"{(prof_wall - sync_ms) / max(hops, 1):.4f} ms")
+              f"beam kernels {beam_dev_ms:.4f} ms of device time against "
+              + ("no block stamps" if stamps_ms is None else
+                 f"{stamps_ms:.4f} ms from the blocks' stamps (ratio "
+                 f"{stamps_ms / max(beam_dev_ms, 1e-9):.4f})")
+              + f", .any() syncs {sync_ms:.3f} ms, other host "
+              f"{prof_wall - sync_ms:.3f} ms")
         for k, v in sorted(kern.items(),
                            key=lambda kv: -kv[1]["device_ms"])[:12]:
             print(f"[hop]   device {v['device_ms']:.4f} ms x{v['count']} "
@@ -206,17 +226,38 @@ def main() -> int:
             print(f"[hop]   host self {r['self_ms']:.3f} ms "
                   f"(total {r['total_ms']:.3f}) x{r['count']} {r['op']}")
         result["paths"][name] = dict(per_batch=per_batch, mean=agg,
-                                     batch=reps, beam_ms=beam_ms, hops=hops,
-                                     profile=prof)
+                                     batch=reps, beam_ms=beam_ms,
+                                     record=rec, profile=prof)
     sub.beam_search_batch = inner
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "hop_profile.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({k: v for k, v in result.items() if k != "paths"}
                      | {"paths": {p: dict(beam_ms=v["beam_ms"],
-                                          hops=v["hops"], mean=v["mean"])
+                                          record=v["record"], mean=v["mean"])
                                   for p, v in result["paths"].items()}}))
     return 0
+
+
+def beam_records(tr):
+    """The fused beam's launch records of one traced search, summed: the
+    launches, queries and hops, one hop's µs inside its block and the hop
+    loop's cycles by phase as shares of the loop's (``rfann_bench.beamrec``,
+    as the benchmark's readers compute them), and the launches' span by the
+    blocks' own stamps (Σ over launches of max exit − min entry, ms); None
+    where no record carries stamps (the plain path, or a tree without the
+    traced beam)."""
+    recs = beamrec.records([tr], "t0_ns")
+    if not recs:
+        return None
+    return dict(launches=len(recs),
+                queries=sum(len(r["hops"]) for r in recs),
+                hops=sum(int(np.sum(r["hops"])) for r in recs),
+                hop_us=beamrec.hop_us([tr]),
+                span_ms=sum(int(r["t1_ns"].max() - r["t0_ns"].min())
+                            for r in recs) / 1e6,
+                shares={p: beamrec.phase_share([tr], p)
+                        for p in ("select", "expand", "score", "fold")})
 
 
 def stream_profile(args, card, base, attrs, qv, ranges) -> int:

@@ -60,7 +60,7 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
                       entry: torch.Tensor, *, k: int = 10, ef: int = 64,
                       use_kernel: bool = False, beam_width: int = 1,
                       quant=None, live: torch.Tensor | None = None,
-                      early_stop: bool = True):
+                      early_stop: bool = True, trace: bool = False):
     """vecs:(n,d) f32; nbrs:(n,m) i32; qv:(Q,d); lo/hi:(Q,) rank ids;
     entry:(Q,) or (Q,E) entry ranks.  Returns (ids:(Q,k) i32 rank ids (-1
     pad), dists:(Q,k) f32, stats {"hops", "ndist"} (Q,) i32), all on the
@@ -81,7 +81,10 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
     dead nodes are traversed but filtered out of the final pool.
     ``use_kernel`` runs the hop loop through ``ops.beam_single`` /
     ``ops.beam_batched`` (one fused kernel per call on the card) and the
-    quantized rerank through ``ops.gather_rerank``."""
+    quantized rerank through ``ops.gather_rerank``.  ``trace`` adds
+    ``stats["record"]``: on the card the traced launch's (Q,
+    ``len(kernels.beam.TRACE_FIELDS)``) int64 record, None on the plain
+    path, which has no timers."""
     steps_cap = 8 * ef + 64
     dev = vecs.device
     qv = qv.to(device=dev, dtype=torch.float32)
@@ -102,8 +105,13 @@ def beam_search_batch(vecs: torch.Tensor, nbrs: torch.Tensor,
         kw["beam_width"] = beam_width
     else:
         run = ops.beam_single if use_kernel else ref.beam_single_ref
-    return _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k, use_kernel,
-                   quant, live)
+    if trace and use_kernel:
+        kw["trace"] = True
+    ids, dists, stats = _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k,
+                                use_kernel, quant, live)
+    if trace:
+        stats.setdefault("record", None)
+    return ids, dists, stats
 
 
 def _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k, use_kernel, quant,
@@ -111,13 +119,15 @@ def _finish(run, kw, vecs, nbrs, qv, lo, hi, entry, k, use_kernel, quant,
     """The hop loop ``run`` over the traversal's corpus, then the pool's
     top-k (or its f32 rerank under ``quant``)."""
     score = (vecs, None) if quant is None else quant
-    cand_d, cand_ids, steps, ndist = run(*score, nbrs, qv, lo, hi, entry,
-                                         **kw)
+    cand_d, cand_ids, steps, ndist, *rec = run(*score, nbrs, qv, lo, hi,
+                                               entry, **kw)
     ids, dists = _pool_finish(cand_d, cand_ids, live, k, quant)
     if quant is not None:
         ids, dists = rerank_pool(vecs, ids, qv, k, use_kernel)
-    return ids, dists, {"hops": steps.to(torch.int32),
-                        "ndist": ndist.to(torch.int32)}
+    stats = {"hops": steps.to(torch.int32), "ndist": ndist.to(torch.int32)}
+    if rec:
+        stats["record"] = rec[0]
+    return ids, dists, stats
 
 
 def beam_search_hop(vecs, nbrs, qv, lo, hi, entry, *, k: int = 10,

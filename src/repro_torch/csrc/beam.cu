@@ -63,6 +63,19 @@
 // kernel (pool_global).
 // The visited set of bw 1 is a bitmap of n+1 bits per query in global
 // memory (read through L2 with __ldcg, set with atomicOr).
+//
+// Tracing: a launch given a record row per query runs the TRACE
+// instantiation, in which each block writes TRACE_FIELDS int64
+// (kernels/beam.py::TRACE_FIELDS): %globaltimer ns at block entry and
+// exit, %smid, the hop loop's cycles, and its cycles in four
+// phases (PhaseClock), each closed by thread 0's clock read after a
+// barrier (or warp 0's last store) the hop already has: select
+// (first_selectable and the loop test), expand (the neighbour row and the
+// visited test and set, bw 1; the hop / pool / table dedup and the insert,
+// bw > 1), score (score_fresh) and fold (rank_fresh + merge_pool).  The
+// phases tile the loop, so they sum to its cycles.  The untraced
+// instantiation holds none of it: every stamp sits under `if (TRACE &&
+// ...)`, and its SASS is the untraced kernel's of before.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -79,6 +92,62 @@
 #define FULL 0xffffffffu
 
 static_assert(BEAM_WARPS == 32, "first_selectable scans one warp total each");
+
+// One traced block's record, in the order of kernels/beam.py::TRACE_FIELDS.
+enum TraceField {
+  TR_T0_NS, TR_T1_NS, TR_SM, TR_LOOP,
+  TR_SELECT, TR_EXPAND, TR_SCORE, TR_FOLD, TRACE_FIELDS
+};
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+__device__ __forceinline__ int sm_id() {
+  unsigned s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return (int)s;
+}
+
+// One block's row of the record.
+__device__ __forceinline__ long long* record_of(long long* trace) {
+  return trace + (size_t)blockIdx.x * TRACE_FIELDS;
+}
+
+__device__ __forceinline__ unsigned clock32() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(c));
+  return c;
+}
+
+// Thread 0's clock over the hop loop: each stamp adds the cycles since the
+// previous one to its phase.  Six 32-bit registers, so a block's loop must
+// take under 2^32 cycles (about 2.4 s at 1.755 GHz).  The kernel runs at
+// the 64 registers of __launch_bounds__(1024, 1), and what the stamps take
+// from the hop's own code costs more than the stamps do: 64-bit sums, sums
+// spread over warp 0's lanes, and sums added to the record by global
+// atomics each slowed the traced hop more than this.
+struct PhaseClock {
+  unsigned start, at, sum[TR_FOLD - TR_SELECT + 1];
+
+  __device__ __forceinline__ void begin() {
+    start = at = clock32();
+#pragma unroll
+    for (int p = 0; p <= TR_FOLD - TR_SELECT; ++p) sum[p] = 0;
+  }
+  __device__ __forceinline__ void stamp(int field) {
+    const unsigned now = clock32();
+    sum[field - TR_SELECT] += now - at;
+    at = now;
+  }
+  __device__ __forceinline__ void put(long long* rec) const {
+    rec[TR_LOOP] = at - start;
+#pragma unroll
+    for (int p = 0; p <= TR_FOLD - TR_SELECT; ++p) rec[TR_SELECT + p] = sum[p];
+  }
+};
 
 // Byte offsets into a block's dynamic shared memory, in the order of
 // kernels/beam.py::LAYOUT: the regions, the total, and within one pool
@@ -121,6 +190,7 @@ struct BeamArgs {
   int* out_ndist;
   uint32_t* visited;  // bw 1: (Q, W) zeroed words
   unsigned char* pool;  // pool_global: (Q, 2 * L.pool_buf)
+  long long* trace;  // TRACE: (Q, TRACE_FIELDS)
   int d, m, E, ef, B, F, H, W, steps_cap, early_stop, pool_global;
   Layout L;
 };
@@ -256,11 +326,16 @@ __device__ void merge_pool(const Pool& A, const Pool& B, int ef,
   __syncthreads();
 }
 
-template <typename T, bool BATCHED>
+template <typename T, bool BATCHED, bool TRACE>
 __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int qi = blockIdx.x;
   const int tid = threadIdx.x;
+  if (TRACE && tid == 0) {
+    long long* rec = record_of(a.trace);
+    rec[TR_T0_NS] = global_ns();
+    rec[TR_SM] = sm_id();
+  }
   const int lane = tid & 31, warp = tid >> 5;
   const int d = a.d, m = a.m, ef = a.ef, F = a.F, H = a.H;
   const Layout L = a.L;
@@ -321,6 +396,8 @@ __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
 
   int steps = 0, ndist = 0;
   const int want = BATCHED ? a.B : 1;
+  PhaseClock clk;
+  if (TRACE && tid == 0) clk.begin();
   for (;;) {
     if (tid == 0) ctl[CTL_NV] = 0;
     const int ns = first_selectable(cur, ef, want, sel, ctl);
@@ -329,6 +406,7 @@ __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
     const float worst = cur.d[ef - 1];
     bool go = best <= worst && steps < a.steps_cap;
     if (a.early_stop) go = go && best < inf;
+    if (TRACE && tid == 0) clk.stamp(TR_SELECT);
     if (!go) break;
 
     if (!BATCHED) {
@@ -348,6 +426,8 @@ __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
       // the whole row was read before any of it is marked
       for (int j = tid; j < m; j += BEAM_THREADS)
         if (fok[j]) atomicOr(vis + (fid[j] >> 5), 1u << (fid[j] & 31));
+      // warp 0 sets the row while m <= 32
+      if (TRACE && tid == 0) clk.stamp(TR_EXPAND);
       score_fresh(x, ss, qs, d, fid, fok, fkey, F);
     } else {
       for (int b = tid; b < ns; b += BEAM_THREADS) cur.e[sel[b]] = 1;
@@ -394,13 +474,17 @@ __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
           __syncwarp();
         }
       }
+      // warp 0 inserts
+      if (TRACE && tid == 0) clk.stamp(TR_EXPAND);
       score_fresh(x, ss, qs, d, fid, fv, fkey, F);
     }
     __syncthreads();
+    if (TRACE && tid == 0) clk.stamp(TR_SCORE);
     const int nf = ctl[CTL_NV];
     const int keep = min(F, ef);
     rank_fresh(fkey, fid, F, keep, sd, sid);
     merge_pool(cur, nxt, ef, sd, sid, min(nf, keep));
+    if (TRACE && tid == 0) clk.stamp(TR_FOLD);
     const Pool t = cur;
     cur = nxt;
     nxt = t;
@@ -414,6 +498,11 @@ __global__ void __launch_bounds__(BEAM_THREADS, 1) beam_kernel(BeamArgs a) {
   if (tid == 0) {
     a.out_steps[qi] = steps;
     a.out_ndist[qi] = ndist;
+    if (TRACE) {
+      long long* rec = record_of(a.trace);
+      clk.put(rec);
+      rec[TR_T1_NS] = global_ns();
+    }
   }
 }
 
@@ -446,13 +535,23 @@ static bool layout_ok(const BeamArgs& a) {
   return L.total <= optin;
 }
 
-template <typename T, bool BATCHED>
-static int launch(const BeamArgs& a, int Q, cudaStream_t st) {
-  if (!layout_ok(a)) return (int)cudaErrorInvalidValue;
-  const int rc = set_smem((const void*)beam_kernel<T, BATCHED>, a.L.total);
+template <typename T, bool BATCHED, bool TRACE>
+static int launch_as(const BeamArgs& a, int Q, cudaStream_t st) {
+  const int rc =
+      set_smem((const void*)beam_kernel<T, BATCHED, TRACE>, a.L.total);
   if (rc) return rc;
-  beam_kernel<T, BATCHED><<<Q, BEAM_THREADS, a.L.total, st>>>(a);
+  beam_kernel<T, BATCHED, TRACE><<<Q, BEAM_THREADS, a.L.total, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The traced instantiation where a record is given, R int64 per query, R
+// the kernel's TRACE_FIELDS; else the untraced one.
+template <typename T, bool BATCHED>
+static int launch(const BeamArgs& a, int Q, int R, cudaStream_t st) {
+  if (!layout_ok(a) || (a.trace != nullptr && R != TRACE_FIELDS))
+    return (int)cudaErrorInvalidValue;
+  return a.trace != nullptr ? launch_as<T, BATCHED, true>(a, Q, st)
+                            : launch_as<T, BATCHED, false>(a, Q, st);
 }
 
 static BeamArgs pack(const void* x, const float* scale, const int* nbrs,
@@ -460,9 +559,9 @@ static BeamArgs pack(const void* x, const float* scale, const int* nbrs,
                      const int* seeds, const float* init_d,
                      const int* init_id, const uint8_t* init_e, float* out_d,
                      int* out_id, int* out_steps, int* out_ndist,
-                     uint32_t* visited, unsigned char* pool, int d, int m,
-                     int E, int ef, int B, int H, int W, int steps_cap,
-                     int early_stop, int pool_global,
+                     uint32_t* visited, unsigned char* pool, long long* trace,
+                     int d, int m, int E, int ef, int B, int H, int W,
+                     int steps_cap, int early_stop, int pool_global,
                      const long long* layout) {
   BeamArgs a;
   a.x = x;
@@ -481,6 +580,7 @@ static BeamArgs pack(const void* x, const float* scale, const int* nbrs,
   a.out_ndist = out_ndist;
   a.visited = visited;
   a.pool = pool;
+  a.trace = trace;
   a.d = d;
   a.m = m;
   a.E = E;
@@ -501,24 +601,26 @@ static BeamArgs pack(const void* x, const float* scale, const int* nbrs,
       const float *q, const int *lo, const int *hi, const int *seeds,       \
       const float *init_d, const int *init_id, const uint8_t *init_e,       \
       float *out_d, int *out_id, int *out_steps, int *out_ndist,            \
-      uint32_t *visited, unsigned char *pool, int Q, int d, int m, int E,   \
-      int ef, int B, int H, int W, int steps_cap, int early_stop,           \
-      int pool_global, const long long *layout, void *stream
+      uint32_t *visited, unsigned char *pool, long long *trace, int Q,      \
+      int d, int m, int E, int ef, int B, int H, int W, int steps_cap,      \
+      int early_stop, int pool_global, int R, const long long *layout,      \
+      void *stream
 #define BEAM_PACK                                                            \
   pack(x, scale, nbrs, q, lo, hi, seeds, init_d, init_id, init_e, out_d,    \
-       out_id, out_steps, out_ndist, visited, pool, d, m, E, ef, B, H, W,   \
-       steps_cap, early_stop, pool_global, layout)
+       out_id, out_steps, out_ndist, visited, pool, trace, d, m, E, ef, B,  \
+       H, W, steps_cap, early_stop, pool_global, layout)
 
 // bw 1: B = 1, H = 0, visited (Q, W) zeroed 32-bit words (W >= (n+32)/32).
 // x: (N, d) elements of `dtype` (DT_F32, DT_INT8 or DT_BF16); scale: (d,)
-// f32 or null.  Returns the first CUDA error, 0 on success.
+// f32 or null; trace: (Q, R) int64, R = TRACE_FIELDS, or null (untraced).
+// Returns the first CUDA error, 0 on success.
 extern "C" int beam_single_launch(BEAM_PARAMS) {
   if (B != 1 || H != 0 || visited == nullptr)
     return (int)cudaErrorInvalidValue;
   const BeamArgs a = BEAM_PACK;
   int rc = 0;
   DISPATCH_CORPUS(dtype, T, {
-    rc = launch<T, false>(a, Q, (cudaStream_t)stream);
+    rc = launch<T, false>(a, Q, R, (cudaStream_t)stream);
   });
   return rc;
 }
@@ -530,7 +632,7 @@ extern "C" int beam_batched_launch(BEAM_PARAMS) {
   const BeamArgs a = BEAM_PACK;
   int rc = 0;
   DISPATCH_CORPUS(dtype, T, {
-    rc = launch<T, true>(a, Q, (cudaStream_t)stream);
+    rc = launch<T, true>(a, Q, R, (cudaStream_t)stream);
   });
   return rc;
 }

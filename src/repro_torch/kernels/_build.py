@@ -58,10 +58,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "beam": {
         # x, dtype, scale, nbrs, q, lo, hi, seeds, init_d, init_id, init_e,
-        # out_d, out_id, out_steps, out_ndist, visited, pool, Q, d, m, E,
-        # ef, B, H, W, steps_cap, early_stop, pool_global, layout, stream
-        "beam_single_launch": [_P, _I] + [_P] * 15 + [_I] * 11 + [_P] * 2,
-        "beam_batched_launch": [_P, _I] + [_P] * 15 + [_I] * 11 + [_P] * 2,
+        # out_d, out_id, out_steps, out_ndist, visited, pool, trace, Q, d,
+        # m, E, ef, B, H, W, steps_cap, early_stop, pool_global, R, layout,
+        # stream
+        "beam_single_launch": [_P, _I] + [_P] * 16 + [_I] * 12 + [_P] * 2,
+        "beam_batched_launch": [_P, _I] + [_P] * 16 + [_I] * 12 + [_P] * 2,
     },
 }
 

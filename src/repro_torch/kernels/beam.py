@@ -8,6 +8,9 @@ once (the kernel's merge keeps it sorted, which equals the reference's
 stable sort of pool + fresh every hop), the entry ids the kernel marks
 visited, and for bw 1 the zeroed visited bitmap.  ``beam_plan`` owns the
 block's shared-memory layout and hands its byte offsets to the kernel.
+``trace=True`` launches the kernel's traced instantiation, which also
+returns one ``TRACE_FIELDS`` row per query (timer stamps, SM, phase
+cycles); the untraced launch is the same code without them.
 The plain version of these kernels is the lockstep loop itself
 (``ref.beam_single_ref`` / ``ref.beam_batched_ref``); callers go through
 ``repro_torch.kernels.ops``."""
@@ -34,6 +37,13 @@ CTL_INTS = 64
 LAYOUT = ("q", "scale", "ctl", "sel", "fid", "fok", "fv", "slot", "sd",
           "sid", "fkey", "table", "pool", "total", "pool_id", "pool_e",
           "pool_buf")
+#: one traced block's record, int64, in the order of ``csrc/beam.cu``'s
+#: ``TraceField``: ``%globaltimer`` ns at block entry and exit, ``%smid``,
+#: the hop loop's cycles, and its cycles in the four phases that tile it
+TRACE_FIELDS = ("t0_ns", "t1_ns", "sm", "loop", "select", "expand",
+                "score", "fold")
+#: the hop loop's phases, as ``TRACE_FIELDS`` names them
+PHASES = ("select", "expand", "score", "fold")
 
 
 def _a16(x: int) -> int:
@@ -111,7 +121,8 @@ def _check(x, nbrs, qv, lo, hi, what):
 
 
 def _launch(fn_name, x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-            steps_cap: int, early_stop: bool, beam_width: int):
+            steps_cap: int, early_stop: bool, beam_width: int,
+            trace: bool = False):
     what = fn_name.replace("_launch", "")
     _check(x, nbrs, qv, lo, hi, what)
     xc, code, scale = _build.corpus_operands(x, scale, what)
@@ -135,6 +146,8 @@ def _launch(fn_name, x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
                if words else None)
     pool = (torch.empty((nq, 2 * plan.at("pool_buf")), dtype=torch.uint8,
                         device=dev) if plan.pool_global else None)
+    rec = (torch.empty((nq, len(TRACE_FIELDS)), dtype=torch.int64,
+                       device=dev) if trace else None)
     layout = (ctypes.c_longlong * len(LAYOUT))(*plan.offsets)
     # every operand held in a name until the launch is enqueued: a
     # temporary freed mid-call could hand its memory to the next one
@@ -146,27 +159,31 @@ def _launch(fn_name, x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
         lo32.data_ptr(), hi32.data_ptr(), seeds.data_ptr(), init_d.data_ptr(),
         init_id.data_ptr(), init_e.data_ptr(), out_d.data_ptr(),
         out_id.data_ptr(), steps.data_ptr(), ndist.data_ptr(), ptr(visited),
-        ptr(pool), nq, d, m, seeds.shape[1], ef, plan.B, plan.H, words,
-        steps_cap, int(early_stop), int(plan.pool_global), layout,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(pool), ptr(rec), nq, d, m, seeds.shape[1], ef, plan.B, plan.H,
+        words, steps_cap, int(early_stop), int(plan.pool_global),
+        len(TRACE_FIELDS), layout, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
-    return out_d, out_id.long(), steps.long(), ndist.long()
+    out = out_d, out_id.long(), steps.long(), ndist.long()
+    return out + (rec,) if trace else out
 
 
 def beam_single_cuda(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                     steps_cap: int, early_stop: bool):
+                     steps_cap: int, early_stop: bool, trace: bool = False):
     """bw 1 on CUDA tensors: the final (Q, ef) pool (distances, ids),
-    hops and ndist per query, as ``ref.beam_single_ref`` returns them."""
+    hops and ndist per query, as ``ref.beam_single_ref`` returns them, and
+    with ``trace`` the (Q, ``len(TRACE_FIELDS)``) int64 record."""
     return _launch("beam_single_launch", x, scale, nbrs, qv, lo, hi, entry,
                    ef=ef, steps_cap=steps_cap, early_stop=early_stop,
-                   beam_width=1)
+                   beam_width=1, trace=trace)
 
 
 def beam_batched_cuda(x, scale, nbrs, qv, lo, hi, entry, *, ef: int,
-                      steps_cap: int, early_stop: bool, beam_width: int):
-    """bw > 1 on CUDA tensors, as ``ref.beam_batched_ref`` returns it."""
+                      steps_cap: int, early_stop: bool, beam_width: int,
+                      trace: bool = False):
+    """bw > 1 on CUDA tensors, as ``ref.beam_batched_ref`` returns it (and
+    the record, as ``beam_single_cuda``)."""
     if beam_width < 2:
         raise ValueError(f"beam_batched: beam_width={beam_width} < 2")
     return _launch("beam_batched_launch", x, scale, nbrs, qv, lo, hi, entry,
                    ef=ef, steps_cap=steps_cap, early_stop=early_stop,
-                   beam_width=beam_width)
+                   beam_width=beam_width, trace=trace)

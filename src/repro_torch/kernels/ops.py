@@ -115,39 +115,42 @@ def gather_rerank(x: torch.Tensor, ids: torch.Tensor, q: torch.Tensor, *,
 
 
 def beam_single(x: torch.Tensor, scale, nbrs: torch.Tensor, qv, lo, hi,
-                entry, *, ef: int, steps_cap: int, early_stop: bool):
+                entry, *, ef: int, steps_cap: int, early_stop: bool,
+                trace: bool = False):
     """The bw-1 beam's whole hop loop over a batch: x (n,d) the corpus the
     traversal scores (f32, or int8/bf16 with ``scale``), nbrs (n,m) i32,
     qv (Q,d) f32, lo/hi (Q,) rank bounds, entry (Q,) or (Q,E) ->
     (cand_d (Q,ef) f32, cand_ids (Q,ef) i64, hops (Q,), ndist (Q,)): the
     final pool, ascending.  The plain version is the lockstep loop
     (``ref.beam_single_ref``); a CUDA tensor launches one fused kernel for
-    the batch."""
+    the batch.  ``trace`` appends the traced launch's per-query record
+    (``kernels.beam.TRACE_FIELDS``), None from the plain version."""
     if x.device.type == "cpu":
-        return ref.beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
-                                   steps_cap=steps_cap,
-                                   early_stop=early_stop)
+        out = ref.beam_single_ref(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
+                                  steps_cap=steps_cap, early_stop=early_stop)
+        return out + (None,) if trace else out
     from repro_torch.kernels.beam import beam_single_cuda
     out = beam_single_cuda(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
-                           steps_cap=steps_cap, early_stop=early_stop)
+                           steps_cap=steps_cap, early_stop=early_stop,
+                           trace=trace)
     _count("beam_single", x)
     return out
 
 
 def beam_batched(x: torch.Tensor, scale, nbrs: torch.Tensor, qv, lo, hi,
                  entry, *, ef: int, steps_cap: int, early_stop: bool,
-                 beam_width: int):
+                 beam_width: int, trace: bool = False):
     """The bw-``beam_width`` beam's whole hop loop over a batch, as
     ``beam_single`` (plain version: ``ref.beam_batched_ref``)."""
     if x.device.type == "cpu":
-        return ref.beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry,
-                                    ef=ef, steps_cap=steps_cap,
-                                    beam_width=beam_width,
-                                    early_stop=early_stop)
+        out = ref.beam_batched_ref(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
+                                   steps_cap=steps_cap, beam_width=beam_width,
+                                   early_stop=early_stop)
+        return out + (None,) if trace else out
     from repro_torch.kernels.beam import beam_batched_cuda
     out = beam_batched_cuda(x, scale, nbrs, qv, lo, hi, entry, ef=ef,
                             steps_cap=steps_cap, early_stop=early_stop,
-                            beam_width=beam_width)
+                            beam_width=beam_width, trace=trace)
     _count("beam_batched", x)
     return out
 

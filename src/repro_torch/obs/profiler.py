@@ -5,21 +5,25 @@
 ``device_trace``) line up with the serve path's own span names — the kernel
 dispatch sites in ``repro_torch.search.substrate`` use the reference's
 ``rnsg.scan_dispatch`` / ``rnsg.beam_dispatch`` /
-``rnsg.graph_beam_dispatch``.  With no profiler session active a
-``record_function`` only records its name, so the annotations stay on
-unconditionally.
+``rnsg.graph_beam_dispatch``, and ``QueryTrace.span`` opens
+``rnsg.<span>``.  With no profiler session active nothing is entered, so
+the call sites stay on unconditionally.
 """
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
 
 def annotate(name: str):
-    """Context manager marking a host region in the profiler timeline."""
-    return torch.profiler.record_function(name)
+    """Context manager marking a host region in the profiler timeline
+    while a ``torch.profiler`` session is active (the profiler's own
+    enabled flag, which torch keeps under a private name), else a no-op."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return nullcontext()
 
 
 @contextmanager

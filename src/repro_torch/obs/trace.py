@@ -12,8 +12,17 @@ segment with free-form attributes:
     stitch    block on device outputs + request-order assembly + id remap
 
 Span attributes hold numpy arrays where the quantity is per-query (e.g.
-the strategy vector) and scalars otherwise; ``to_dict()`` converts
-everything to plain JSON-able Python for logging.
+the strategy vector) and scalars otherwise, nested in dicts and lists
+where a stage records several launches (the ``dispatch`` span's ``beam``
+list: one record per fused-beam launch, with its blocks' timer stamps and
+phase cycles on the card); ``to_dict()`` converts everything to plain
+JSON-able Python for logging.
+
+While a ``torch.profiler`` session is active, ``span`` also opens a
+``record_function`` named ``rnsg.<span>`` (``rnsg.resolve``, ...), so a
+device trace shows the serve path's spans beside the kernels on one
+clock; with no session it opens none.  ``add_span``'s spans are measured
+beforehand and open none.
 
 Tracing is strictly **opt-in per request**: the hot path pays one
 ``is None`` check when no trace is attached, which is what keeps the
@@ -32,6 +41,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.obs.profiler import annotate
 
 SPAN_NAMES = ("resolve", "plan", "dispatch", "stitch")
 
@@ -66,11 +77,12 @@ class QueryTrace:
         """Time a block as one span; mutate ``sp.attrs`` inside the block to
         attach results discovered while it runs."""
         sp = Span(name, time.perf_counter(), attrs=dict(attrs))
-        try:
-            yield sp
-        finally:
-            sp.t1 = time.perf_counter()
-            self.spans.append(sp)
+        with annotate(f"rnsg.{name}"):
+            try:
+                yield sp
+            finally:
+                sp.t1 = time.perf_counter()
+                self.spans.append(sp)
 
     def add_span(self, name: str, wall_ms: float = 0.0, **attrs) -> Span:
         """Append a pre-measured (or instantaneous) span."""
@@ -133,7 +145,12 @@ _NULL_SPAN = _NullSpan()
 
 
 def _plain(v):
-    """numpy -> JSON-able Python (arrays to lists, scalars unboxed)."""
+    """numpy -> JSON-able Python (arrays to lists, scalars unboxed), through
+    nested dicts, lists and tuples."""
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
     if isinstance(v, np.ndarray):
         return v.tolist()
     if isinstance(v, (np.integer,)):

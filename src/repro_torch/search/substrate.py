@@ -27,6 +27,11 @@ operands in one pinned copy that does not block (``device.upload``), so it
 waits on the card nowhere before its ``result()``: the distributed local
 path enqueues every shard before the first block.
 Deferred dispatches skip wall-time calibration.
+A request's ``QueryTrace`` also asks each fused-beam launch for its record
+(``beam_search_batch(trace=True)``): once the results reach the host, the
+``dispatch`` span's ``beam`` list gains the launch's rows and hops and, on
+the card, its blocks' timer stamps, SMs and phase cycles
+(``_beam_record``); the record stays out of ``SearchResult.stats``.
 After every planned synchronous dispatch the substrate feeds the cost
 model: observed ``ndist`` from beam stats and warm-call wall times per work
 unit (the first call of each signature is excluded, so the kernels' build
@@ -58,6 +63,7 @@ import torch
 from repro_torch.core.beam import (beam_search_batch, beam_search_hop,
                                    rerank_pool)
 from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.beam import PHASES, TRACE_FIELDS
 from repro_torch.kernels.ops import range_scan
 from repro_torch.kernels.quantize import (QuantizedCorpus, quantize_corpus,
                                           rerank_depth)
@@ -261,7 +267,7 @@ class SearchSubstrate:
                     met.counter("graph_queries_total").inc(len(qv))
                 fin = self._dispatch_graph(qv, lo, hi, k, ef, use_kernel,
                                            beam_width, precision, live=live,
-                                           defer=defer)
+                                           defer=defer, trace=trace, span=sp)
             else:
                 fin = self._dispatch_planned(qv, lo, hi, k, ef, strategy,
                                              use_kernel, defer, beam_width,
@@ -276,10 +282,13 @@ class SearchSubstrate:
 
     # ------------------------------------------------------ graph strategy
     def _dispatch_graph(self, qv, lo, hi, k, ef, use_kernel, beam_width=1,
-                        precision="f32", live=None, defer=False):
+                        precision="f32", live=None, defer=False, trace=None,
+                        span=None):
         """The paper's path: one beam-search dispatch over the full batch.
         Non-f32 precisions score the traversal against the quantized corpus
-        and rerank the final pool in f32 inside ``beam_search_batch``."""
+        and rerank the final pool in f32 inside ``beam_search_batch``.
+        With a ``trace``, the launch's record joins ``span``'s ``beam``
+        list (``_beam_record``)."""
         qj, lo_j, hi_j = upload([qv, lo.astype(np.int32),
                                  hi.astype(np.int32)], self.device,
                                 pinned=defer)
@@ -292,11 +301,14 @@ class SearchSubstrate:
                 self._vecs, self._nbrs, qj, lo_j, hi_j, entry,
                 k=k, ef=max(ef, k), use_kernel=use_kernel,
                 beam_width=beam_width, quant=self._quant_ops(precision),
-                live=live_b)
+                live=live_b, trace=trace is not None)
+        rec = st.pop("record") if trace is not None else None
         met = self.metrics
 
         def finalize():
             st_h = {kk: vv.cpu().numpy() for kk, vv in st.items()}
+            if trace is not None:
+                _beam_record(span, np.arange(len(qv)), st_h["hops"], rec)
             st_h["strategy"] = np.ones(len(qv), np.int8)     # all graph/beam
             st_h["scan_frac"] = 0.0
             ids_h, d_h = ids.cpu().numpy(), dists.cpu().numpy()
@@ -359,7 +371,8 @@ class SearchSubstrate:
                                           defer=defer,
                                           use_kernel=use_kernel,
                                           beam_width=beam_width,
-                                          precision=precision, live=live)
+                                          precision=precision, live=live,
+                                          trace=trace, span=span)
             if not defer:
                 val = fin()
                 fin = (lambda v: lambda: v)(val)
@@ -537,7 +550,8 @@ class SearchSubstrate:
     def _dispatch_beam(self, qv, lo, hi, idx, ef: int, pad_q: int, k: int, *,
                        calibrate: bool, defer: bool = False,
                        use_kernel: bool = False, beam_width: int = 1,
-                       precision: str = "f32", live=None):
+                       precision: str = "f32", live=None, trace=None,
+                       span=None):
         nq = len(idx)
         if nq == 0:                 # empty partition: nothing to dispatch
             empty = np.zeros(0, np.int32)
@@ -561,13 +575,16 @@ class SearchSubstrate:
             ids, d, st = beam_search_batch(
                 self._vecs, self._nbrs, q_j, lo_j, hi_j, entry, k=k,
                 ef=max(ef, k), use_kernel=use_kernel, beam_width=beam_width,
-                quant=quant, live=live_b)
+                quant=quant, live=live_b, trace=trace is not None)
+        rec = st.pop("record") if trace is not None else None
         met = self.metrics
 
         def finalize():
             ids_h = ids.cpu().numpy()[:nq]
             d_h = d.cpu().numpy()[:nq]
             st_h = {kk: vv.cpu().numpy()[:nq] for kk, vv in st.items()}
+            if trace is not None:
+                _beam_record(span, idx, st_h["hops"], rec)
             dt = time.perf_counter() - t0
             if met is not None:
                 met.histogram("beam_dispatch_ms").observe(dt * 1e3)
@@ -582,6 +599,26 @@ class SearchSubstrate:
                         pad_q, precision=precision)
             return ids_h, d_h, st_h
         return finalize
+
+
+def _beam_record(span, rows, hops, rec) -> None:
+    """Append one fused-beam launch's record to the ``dispatch`` span's
+    ``beam`` list: the rows of the dispatched batch it answered and their
+    hops and, from the card's traced launch (``rec``, one
+    ``kernels.beam.TRACE_FIELDS`` row per block, pad blocks last), each
+    row's block entry and exit (``t0_ns``, ``t1_ns``: ``%globaltimer``),
+    its SM, its cycles by hop-loop phase with the loop's (``cycles``),
+    and the card's SM count (``sms``).  The plain path has no timers: its
+    record holds rows and hops alone."""
+    out = {"rows": np.asarray(rows), "hops": np.asarray(hops)}
+    if rec is not None:
+        r = rec.cpu().numpy()[:len(out["rows"])]
+        f = dict(zip(TRACE_FIELDS, r.T))
+        sms = torch.cuda.get_device_properties(rec.device)
+        out.update(t0_ns=f["t0_ns"], t1_ns=f["t1_ns"], sm=f["sm"],
+                   cycles={p: f[p] for p in ("loop",) + PHASES},
+                   sms=sms.multi_processor_count)
+    span.attrs.setdefault("beam", []).append(out)
 
 
 def _host(a) -> np.ndarray:
